@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) in place of the
 reference's Pallas TPU kernels.
 
-  paged_attention — causal chunk attention over the head-granular paged
-                    KV pool (the fused step's attention; decode rows are
-                    1-token chunks).
+  paged_attention — attention over the head-granular paged KV pool:
+                    causal chunk attention (the fused step, where decode
+                    rows are 1-token chunks, and the split schedule's
+                    prefill call) and decode attention (the split
+                    schedule's decode call).
 
-Each kernel ships ``ops.py`` (the wrapper: CUDA kernel on CUDA tensors,
-plain version on CPU tensors), ``ref.py`` (the plain PyTorch version) and
-its source under ``csrc/``, built by ``build.py`` at first use.
+Each kernel package ships ``ops.py`` (the wrappers: CUDA kernel on CUDA
+tensors, plain version on CPU tensors), ``ref.py`` (the plain PyTorch
+versions) and its sources under ``csrc/``, built by ``build.py`` at first
+use.
 """

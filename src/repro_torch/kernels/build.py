@@ -5,7 +5,8 @@ It is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the repository root, keyed on a hash
 of the source and the flags, and loaded with ``ctypes``.  Nothing is
 compiled when a module is imported: only a wrapper's first launch on a
-CUDA tensor calls :func:`load`.
+CUDA tensor calls :func:`load`, and :func:`build_all` compiles several
+sources at once (one ``nvcc`` process each, all started together).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,23 +35,44 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _library_path(name: str, source: Path) -> Path:
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build_all(sources: Sequence[Tuple[str, Path]]) -> None:
+    """Compile every ``(name, source)`` whose library is not built yet,
+    all ``nvcc`` processes running at once; raise if any fails."""
+    jobs = []
+    for name, source in sources:
+        so = _library_path(name, source)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(source)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, source, so, tmp, proc))
+    failed = []
+    for name, source, so, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source}:\n{err}")
+            continue
+        BUILD_LOG[name] = out + err
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, source: Path) -> ctypes.CDLL:
     """Compile ``source`` (once per content hash) and load it."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{key}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{name}-{key}.{os.getpid()}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-        BUILD_LOG[name] = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build_all([(name, source)])
+    lib = ctypes.CDLL(str(_library_path(name, source)))
     _LIBS[name] = lib
     return lib

@@ -1,2 +1,4 @@
-from repro_torch.kernels.paged_attention.ops import paged_prefill_attention
-from repro_torch.kernels.paged_attention.ref import paged_prefill_attention_ref
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_prefill_attention)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_prefill_attention_ref)

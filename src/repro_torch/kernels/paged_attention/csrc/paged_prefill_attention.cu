@@ -111,7 +111,8 @@ paged_prefill_kernel(const T* __restrict__ q,          // (B, Hkv, M, DH)
   const int m0 = blockIdx.x * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int length = lengths[b];
+  // keys past the table are never visible, as in the reference's grid
+  const int length = max(0, min(lengths[b], max_pages * page));
   const int start = starts[b];
   const int m_last = min(m0 + kBlockM, M) - 1;
   // last key any row of this tile may see, plus one

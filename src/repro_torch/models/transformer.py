@@ -1,4 +1,4 @@
-"""Model assembly for the fused serving step.
+"""Model assembly for the paged serving steps.
 
 Parameters are a plain dict mirroring the reference's pytree:
 ``{"groups": [per-group dict with a leading layer axis], "embed",
@@ -8,9 +8,10 @@ stacked tensors.  Pools are updated in place, but every step still
 returns ``(logits, kpools, vpools)`` so the engine reads like the
 reference.
 
-Only the paged fused step is ported: prefill/decode against dense caches,
-the split schedule, training and the traced twins wait for later slices
-(ROADMAP Queue A, items 7, 8 and 11).
+The paged steps are ported: the fused step, and the split schedule's
+prefill-chunk and decode calls, each over per-device pool shards.
+Prefill/decode against dense caches, training and the traced twins wait
+for later slices (ROADMAP Queue A, items 7, 8 and 11).
 """
 
 from __future__ import annotations
@@ -88,6 +89,30 @@ def supports_fused_step(cfg: ModelConfig) -> bool:
     return supports_paged_decode(cfg) and supports_paged_prefill(cfg)
 
 
+def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 attend) -> torch.Tensor:
+    """Run every layer on ``x``: rmsnorm, ``attend(p_attn, xn, idx)`` (the
+    attention output; it writes layer ``idx`` of the pools), residual,
+    rmsnorm, MLP, residual.  Returns the final-normed hidden states."""
+    layer0 = 0
+    for gi, (kind, n, _win) in enumerate(layer_groups(cfg)):
+        if kind != "gqa_mlp":
+            raise NotImplementedError(
+                f"layer kind {kind!r} is not ported (ROADMAP Queue A, "
+                f"item 2: moe_apply; item 10: other model families)")
+        gp = params["groups"][gi]
+        for li in range(n):
+            xn = rmsnorm(x, gp["attn_norm"][li], cfg.norm_eps)
+            x = x + attend({k: v[li] for k, v in gp["attn"].items()}, xn,
+                           layer0 + li)
+            if "mlp" in gp:
+                xn = rmsnorm(x, gp["mlp_norm"][li], cfg.norm_eps)
+                x = x + mlp_mod.mlp_apply(
+                    cfg, {k: v[li] for k, v in gp["mlp"].items()}, xn)
+        layer0 += n
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
 def _paged_chunk_forward(cfg: ModelConfig, params: Params,
                          kpool: torch.Tensor, vpool: torch.Tensor,
                          block_tables: torch.Tensor, lengths: torch.Tensor,
@@ -98,33 +123,67 @@ def _paged_chunk_forward(cfg: ModelConfig, params: Params,
     """Embed a (B, C) token block, and per layer: rmsnorm, attention
     (K/V scattered into the pools, paged chunk kernel), MLP.  Returns
     each row's last-valid-token logits (fp32) and the pools."""
-    x = params["embed"][tokens.long()]
     C = tokens.shape[1]
     positions = starts.long()[:, None] \
         + torch.arange(C, device=tokens.device)[None, :]
-    layer0 = 0
-    for gi, (kind, n, _win) in enumerate(layer_groups(cfg)):
-        if kind != "gqa_mlp":
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported (ROADMAP Queue A, "
-                f"item 2: moe_apply; item 10: other model families)")
-        gp = params["groups"][gi]
-        for li in range(n):
-            p_l = {k: v[li] for k, v in gp["attn"].items()}
-            xn = rmsnorm(x, gp["attn_norm"][li], cfg.norm_eps)
-            a_out, kpool, vpool = attn.gqa_prefill_paged(
-                cfg, p_l, xn, kpool, vpool, layer0 + li, block_tables,
-                lengths, starts, write_slots, write_offs, positions)
-            x = x + a_out
-            if "mlp" in gp:
-                xn = rmsnorm(x, gp["mlp_norm"][li], cfg.norm_eps)
-                x = x + mlp_mod.mlp_apply(
-                    cfg, {k: v[li] for k, v in gp["mlp"].items()}, xn)
-        layer0 += n
-    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+    def attend(p_attn, xn, idx):
+        return attn.gqa_prefill_paged(
+            cfg, p_attn, xn, kpool, vpool, idx, block_tables, lengths,
+            starts, write_slots, write_offs, positions)[0]
+
+    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
     last = h[torch.arange(h.shape[0], device=h.device), last_idx.long()]
     logits = (last @ _lm_head(cfg, params)).float()
     return logits, kpool, vpool
+
+
+def paged_decode_step(cfg: ModelConfig, params: Params,
+                      kpool: torch.Tensor, vpool: torch.Tensor,
+                      block_tables: torch.Tensor, lengths: torch.Tensor,
+                      write_slot: torch.Tensor, write_off: torch.Tensor,
+                      tokens: torch.Tensor, pos: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against the paged KV pools: per layer the new
+    token's K/V is written in place (one (B*Hkv)-element scatter) and the
+    paged decode kernel attends through the block tables.
+
+    tokens: (B, 1) int; pos: (B,) absolute position of each new token;
+    other operands documented in ``attn.gqa_decode_paged``.
+    Returns (logits (B, vocab) fp32, kpool, vpool)."""
+    assert supports_paged_decode(cfg), "config not supported by paged decode"
+
+    def attend(p_attn, xn, idx):
+        return attn.gqa_decode_paged(
+            cfg, p_attn, xn, kpool, vpool, idx, block_tables, lengths,
+            write_slot, write_off, pos)[0]
+
+    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
+    logits = (h[:, 0] @ _lm_head(cfg, params)).float()
+    return logits, kpool, vpool
+
+
+def paged_prefill_chunk(cfg: ModelConfig, params: Params,
+                        kpool: torch.Tensor, vpool: torch.Tensor,
+                        block_tables: torch.Tensor, lengths: torch.Tensor,
+                        starts: torch.Tensor, write_slots: torch.Tensor,
+                        write_offs: torch.Tensor, tokens: torch.Tensor,
+                        last_idx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill one (B, C) chunk of prompt tokens against the paged pools
+    (the split schedule's prefill call): K/V scattered in place, the
+    chunked-prefill kernel attends causally through the block tables.
+
+    tokens:   (B, C) int chunk tokens (0-padded rows/tails)
+    starts:   (B,) absolute position of tokens[:, 0]
+    lengths:  (B,) tokens stored after this chunk's writes (0 pads rows)
+    last_idx: (B,) in-chunk index of each row's last valid token
+    Returns (last-token logits (B, vocab), kpool, vpool)."""
+    assert supports_paged_prefill(cfg), \
+        "config not supported by paged prefill"
+    return _paged_chunk_forward(cfg, params, kpool, vpool, block_tables,
+                                lengths, starts, write_slots, write_offs,
+                                tokens, last_idx)
 
 
 def paged_fused_step(cfg: ModelConfig, params: Params,
@@ -202,22 +261,65 @@ def _pool_exchange_out(kpools: Pools, vpools: Pools, anchor: int,
     return kpools, vpools
 
 
+def _on_anchor(kpools: Pools, vpools: Pools, anchor: int,
+               anchor_sink: int, exchange, step):
+    """Run ``step(anchor kpool, anchor vpool) -> logits`` over per-device
+    pool shards: stage remote pages into the anchor pool, run the
+    single-pool step on it, write dirty staged pages back.  ``exchange``
+    is ``(g_dev, g_src, g_dst, w_dev, w_src, w_dst)``.
+    Returns (logits, kpools, vpools); the pools are updated in place."""
+    g_dev, g_src, g_dst, w_dev, w_src, w_dst = exchange
+    ak, av = _pool_exchange_in(kpools, vpools, anchor, anchor_sink,
+                               g_dev, g_src, g_dst)
+    logits = step(ak, av)
+    kpools, vpools = _pool_exchange_out(kpools, vpools, anchor, anchor_sink,
+                                        w_dev, w_src, w_dst)
+    return logits, kpools, vpools
+
+
 def sharded_fused_step(cfg: ModelConfig, params: Params,
                        kpools: Pools, vpools: Pools, anchor: int,
                        anchor_sink: int, g_dev, g_src, g_dst, w_dev, w_src,
                        w_dst, block_tables, lengths, starts, write_slots,
                        write_offs, tokens, last_idx):
-    """``paged_fused_step`` over per-device pool shards: stage remote
-    pages into the anchor pool, run the single-pool step on it, write
-    dirty staged pages back.  Block tables and write slots are
-    ANCHOR-pool indices built by ``PoolStepPlan``.
+    """``paged_fused_step`` over per-device pool shards.  Block tables and
+    write slots are ANCHOR-pool indices built by ``PoolStepPlan``.
     Returns (logits, kpools, vpools); the pools are updated in place."""
     assert supports_fused_step(cfg), "config not supported by fused step"
-    ak, av = _pool_exchange_in(kpools, vpools, anchor, anchor_sink,
-                               g_dev, g_src, g_dst)
-    logits, _, _ = paged_fused_step(cfg, params, ak, av, block_tables,
-                                    lengths, starts, write_slots,
-                                    write_offs, tokens, last_idx)
-    kpools, vpools = _pool_exchange_out(kpools, vpools, anchor, anchor_sink,
-                                        w_dev, w_src, w_dst)
-    return logits, kpools, vpools
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_fused_step(
+            cfg, params, ak, av, block_tables, lengths, starts, write_slots,
+            write_offs, tokens, last_idx)[0])
+
+
+def sharded_decode_step(cfg: ModelConfig, params: Params,
+                        kpools: Pools, vpools: Pools, anchor: int,
+                        anchor_sink: int, g_dev, g_src, g_dst, w_dev, w_src,
+                        w_dst, block_tables, lengths, write_slot, write_off,
+                        tokens, pos):
+    """``paged_decode_step`` over per-device pool shards; the writeback
+    lanes carry the remote rows' decode-token page back to its shard.
+    Returns (logits, kpools, vpools); the pools are updated in place."""
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_decode_step(
+            cfg, params, ak, av, block_tables, lengths, write_slot,
+            write_off, tokens, pos)[0])
+
+
+def sharded_prefill_chunk(cfg: ModelConfig, params: Params,
+                          kpools: Pools, vpools: Pools, anchor: int,
+                          anchor_sink: int, g_dev, g_src, g_dst, w_dev,
+                          w_src, w_dst, block_tables, lengths, starts,
+                          write_slots, write_offs, tokens, last_idx):
+    """``paged_prefill_chunk`` over per-device pool shards.
+    Returns (logits, kpools, vpools); the pools are updated in place."""
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_prefill_chunk(
+            cfg, params, ak, av, block_tables, lengths, starts, write_slots,
+            write_offs, tokens, last_idx)[0])

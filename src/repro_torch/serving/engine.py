@@ -5,12 +5,16 @@ The paper's control loop, as in ``repro.serving.engine``:
 
   admit   — new requests get head placements from the Dispatcher LP (Eq 7)
             and page chains on the assigned devices' pool shards;
-  step    — ONE model call per iteration (``transformer.sharded_fused_step``)
-            whose row batch mixes decode rows (the degenerate chunk: one
-            token at position ``ctx - 1``) and prefill rows (chunks of
-            ≤ ``chunk_now`` prompt tokens) under a token budget; K/V is
+  step    — ``step_mode="fused"`` (the default): ONE model call per
+            iteration (``transformer.sharded_fused_step``) whose row batch
+            mixes decode rows (the degenerate chunk: one token at position
+            ``ctx - 1``) and prefill rows (chunks of ≤ ``chunk_now`` prompt
+            tokens) under a token budget.  ``step_mode="split"``: two calls
+            per iteration, one batched prefill chunk
+            (``transformer.sharded_prefill_chunk``) and one decode batch
+            (``transformer.sharded_decode_step``).  Either way K/V is
             written in place into the pools and attended through block
-            tables by the hand-written CUDA kernel;
+            tables by hand-written CUDA kernels;
   balance — Θ-triggered re-dispatching and device-local LIFO handling of
             memory exhaustion (§5.3), with migration bytes scheduled by the
             Hauler into compute-overlap windows;
@@ -20,10 +24,11 @@ The paper's control loop, as in ``repro.serving.engine``:
 
 The cluster's device classes are simulated: every pool shard lives on the
 one torch ``device`` the engine runs on.  Shapes are pow2-bucketed as in
-the reference, so the step sees at most ``fused_bucket_count()`` distinct
-shapes.  Only the fused/paged/paged configuration is ported; the split
-schedule, the dense oracle modes and the per-module probe raise
-``NotImplementedError`` naming their ROADMAP item.
+the reference, so each model call sees at most ``fused_bucket_count()``
+(``bucket_count()`` and ``prefill_bucket_count()`` for the split calls)
+distinct shapes.  Both paged schedules are ported; the dense oracle modes
+and the per-module probe raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -88,11 +93,14 @@ class EngineConfig:
     theta: float = 0.5              # re-dispatch trigger (paper Θ)
     cache_gb_per_device: Optional[Dict[int, float]] = None
     max_seq: int = 512
-    # only "paged" is ported ("dense" is ROADMAP Queue A item 7)
+    # "paged": device-resident pools + hand-written kernels; only "paged"
+    # is ported (the "dense" oracle modes are ROADMAP Queue A item 7)
     decode_mode: str = "paged"
     prefill_mode: str = "paged"
     prefill_chunk: int = 32         # max prompt tokens per chunk (pow2)
-    # only "fused" is ported ("split" is ROADMAP Queue A item 7)
+    # "fused": ONE model call per iteration packs decode rows and prefill
+    # chunk tokens under the token budget; "split": one prefill-chunk call
+    # and one decode call per iteration (the reference's fallback/oracle)
     step_mode: str = "fused"
     # per-step token budget for the fused packer; 0 = auto
     # (max_batch decode tokens + prefill_chunk prompt tokens)
@@ -237,15 +245,31 @@ class InferenceEngine:
             "ttft_p95": lambda: self._h_ttft.percentile(95),
         })
 
+        # _check_supported admitted only configs with both paged paths
+        self.use_paged = engine_cfg.decode_mode == "paged"
+        self.use_paged_prefill = engine_cfg.prefill_mode == "paged"
         # anchor / anchor-sink are fixed per engine; the exchange lane
         # arrays stage remote pool shards' pages through the anchor inside
-        # the same model call (see transformer.sharded_fused_step)
+        # the same model call (see transformer.sharded_decode_step)
         anchor, asink = self.kv.anchor, self.kv.sink
+        self._paged_fn = count_recompiles(
+            lambda p, kp, vp, gd, gs, gt, wd, ws_, wt, bt, ln, ws, wo, t,
+            pos: T.sharded_decode_step(
+                cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, ws_, wt,
+                bt, ln, ws, wo, t, pos), self._c_recompiles)
+        self._chunk_fn = count_recompiles(
+            lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
+            t, li: T.sharded_prefill_chunk(
+                cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
+                bt, ln, st, ws, wo, t, li), self._c_recompiles)
         self._fused_fn = count_recompiles(
             lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
             t, li: T.sharded_fused_step(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
                 bt, ln, st, ws, wo, t, li), self._c_recompiles)
+        self._decode_shapes: Set[Tuple[int, int, int]] = set()
+        self._prefill_shapes: Set[Tuple[int, int, int, int]] = set()
+        self.use_fused = engine_cfg.step_mode == "fused"
         # autotuned per-step prefill chunk, pow2 in [1, prefill_chunk]
         self._chunk_now = _bucket(engine_cfg.prefill_chunk)
 
@@ -253,10 +277,9 @@ class InferenceEngine:
     def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
         """Refuse configurations whose path is not ported rather than
         quietly running another one."""
-        if ecfg.step_mode != "fused":
-            raise NotImplementedError(
-                f"step_mode={ecfg.step_mode!r}: the split schedule is "
-                f"ROADMAP Queue A item 7 (engine split and dense modes)")
+        if ecfg.step_mode not in ("fused", "split"):
+            raise ValueError(f"step_mode={ecfg.step_mode!r}: 'fused' or "
+                             f"'split'")
         for name in ("decode_mode", "prefill_mode"):
             if getattr(ecfg, name) != "paged":
                 raise NotImplementedError(
@@ -268,10 +291,9 @@ class InferenceEngine:
                 "Queue A item 8 (telemetry on the port)")
         if not T.supports_fused_step(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the fused step supports pure-GQA, "
+                f"{cfg.name}: the paged paths support pure-GQA, "
                 f"full-attention, token-frontend configs; this one needs "
-                f"the split schedule or dense paths (ROADMAP Queue A "
-                f"items 7 and 10)")
+                f"the dense paths (ROADMAP Queue A items 7 and 10)")
         if cfg.n_experts:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are ROADMAP Queue A item 2 "
@@ -316,17 +338,46 @@ class InferenceEngine:
             return [0]
         return [0] + _pow2s(self.kv.stage)
 
-    def fused_bucket_shapes(self) -> List[Tuple[int, int, int, int]]:
+    def decode_bucket_shapes(self) -> List[Tuple[int, int, int]]:
+        """Every (batch-bucket, pages-bucket, exchange-bucket) shape the
+        paged decode step can be called at."""
+        return [(b, p, g) for b in _pow2s(self.ecfg.max_batch)
+                for p in _pow2s(self._max_pages())
+                for g in self._gw_pow2s()]
+
+    def prefill_bucket_shapes(self) -> List[Tuple[int, int, int, int]]:
         """Every (batch-bucket, chunk-bucket, pages-bucket,
-        exchange-bucket) shape the fused step can be called at."""
+        exchange-bucket) shape the prefill-chunk step can be called at;
+        the fused step shares this universe."""
         return [(b, c, p, g) for b in _pow2s(self.ecfg.max_batch)
                 for c in _pow2s(self.ecfg.prefill_chunk)
                 for p in _pow2s(self._max_pages())
                 for g in self._gw_pow2s()]
 
+    def fused_bucket_shapes(self) -> List[Tuple[int, int, int, int]]:
+        """Every (batch-bucket, chunk-bucket, pages-bucket,
+        exchange-bucket) shape the fused step can be called at."""
+        return self.prefill_bucket_shapes()
+
+    def bucket_count(self) -> int:
+        """Upper bound on the distinct shapes of the paged decode step."""
+        return len(self.decode_bucket_shapes())
+
+    def prefill_bucket_count(self) -> int:
+        """Upper bound on the distinct shapes of the prefill-chunk step."""
+        return len(self.prefill_bucket_shapes())
+
     def fused_bucket_count(self) -> int:
         """Upper bound on the distinct shapes of the fused step."""
         return len(self.fused_bucket_shapes())
+
+    def decode_compile_count(self) -> int:
+        """Distinct shapes the paged decode step has been called with."""
+        return self._paged_fn._cache_size()
+
+    def prefill_compile_count(self) -> int:
+        """Distinct shapes the prefill-chunk step has been called with."""
+        return self._chunk_fn._cache_size()
 
     def fused_compile_count(self) -> int:
         """Distinct shapes the fused step has been called with so far."""
@@ -411,6 +462,145 @@ class InferenceEngine:
             if ok and r in self.running:
                 active.append(r)
         return [r for r in active if r in self.running]
+
+    # ----------------------------------------------------------- split steps
+    def _prefill_chunk_step(self) -> None:
+        """Run ONE prompt chunk of ≤ ``prefill_chunk`` tokens for every
+        prefilling request, batched into a single model call.  K/V lands
+        directly in the pools; a request whose chunk completes its prompt
+        (incl. preemption-replay tokens) samples its first token and joins
+        this step's decode batch."""
+        rows = [(r, r.prompt + r.output) for r in self.prefilling]
+        if not rows:
+            return
+        cfg = self.cfg
+        Hkv, page = cfg.n_kv_heads, self.kv.page
+        chunk = self.ecfg.prefill_chunk
+        spans = [(r, full, min(chunk, len(full) - r.prefill_pos))
+                 for r, full in rows]
+        Bp = _bucket(len(spans))
+        Cp = _bucket(max(n for _, _, n in spans))
+        maxp = max(-(-(r.prefill_pos + n) // page) for r, _, n in spans)
+        Pp = _bucket(maxp)
+        sink = self.kv.sink
+        plan = self.kv.step_plan()
+        toks = np.zeros((Bp, Cp), np.int32)
+        starts = np.zeros((Bp,), np.int32)
+        lengths = np.zeros((Bp,), np.int32)
+        last_idx = np.zeros((Bp,), np.int32)
+        tables = np.full((Bp, Hkv, Pp), sink, np.int32)
+        wslots = np.full((Bp, Hkv, Cp), sink, np.int32)
+        woffs = np.zeros((Bp, Cp), np.int32)
+        for i, (r, full, n) in enumerate(spans):
+            s0 = r.prefill_pos
+            toks[i, :n] = full[s0:s0 + n]
+            starts[i] = s0
+            lengths[i] = s0 + n
+            last_idx[i] = n - 1
+            slots, offs = plan.scatter_indices(r.rid, s0, n)
+            wslots[i, :, :n] = slots
+            woffs[i, :n] = offs
+            # the kernel only reads keys below lengths[i], so only those
+            # pages are staged from remote shards
+            tables[i] = plan.block_table_matrix(r.rid, Pp,
+                                                n_tokens=s0 + n)
+        Gp = _bucket0(plan.gather_count)
+        exch = plan.exchange_arrays(Gp)
+        self._prefill_shapes.add((Bp, Cp, Pp, Gp))
+        host = exch + (tables, lengths, starts, wslots, woffs, toks,
+                       last_idx)
+        h2d = sum(a.nbytes for a in host)
+        dev = self._upload(host)
+        self._c_gather_d2d.inc(plan.d2d_bytes())
+        with self.tracer.span("prefill_chunk",
+                              args={"batch": Bp, "chunk": Cp, "pages": Pp}):
+            kps, vps = self.kv.pools()
+            logits, kps, vps = self._chunk_fn(self.params, kps, vps, *dev)
+            self.kv.install_pools(kps, vps)
+            self.tracer.sync(logits)
+        self._c_model_calls.inc()
+        self._c_h2d.inc(h2d)
+        self._c_pre_h2d.inc(h2d)
+        self._c_chunks.inc()
+        self.clock += self._model_prefill_time(
+            sum(n for _, _, n in spans))
+        nxt = None
+        for i, (r, full, n) in enumerate(spans):
+            r.prefill_pos += n
+            if r.prefill_pos < len(full):
+                continue
+            if nxt is None:             # logits pulled once, on demand
+                nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+                self._c_d2h.inc(logits.numel() * logits.element_size())
+            r.output.append(int(nxt[i]))
+            r.state = RequestState.RUNNING
+            self.prefilling.remove(r)
+            self.running.append(r)
+            if r.ttft is None:
+                r.ttft = self.clock - r.arrival
+                self._h_ttft.observe(r.ttft)
+            if r.done:      # max_new_tokens == 1, or resume filled the last
+                self._finish(r)
+
+    def _decode_batch(self) -> None:
+        """ONE paged decode call for every running request: block tables
+        over the pools, the new token's K/V written in place."""
+        reqs = [r for r in self.running if not r.done]
+        if not reqs:
+            return
+        cfg = self.cfg
+        Hkv, page = cfg.n_kv_heads, self.kv.page
+        active = self._reserve_decode_rows(reqs)
+        if not active:
+            return
+        B = len(active)
+        Bp = _bucket(B)
+        maxp = max(-(-r.ctx_len // page) for r in active)
+        Pp = _bucket(maxp)
+        sink = self.kv.sink
+        plan = self.kv.step_plan()
+        tables = np.full((Bp, Hkv, Pp), sink, np.int32)
+        lengths = np.zeros((Bp,), np.int32)
+        wslot = np.full((Bp, Hkv), sink, np.int32)
+        woff = np.zeros((Bp,), np.int32)
+        pos = np.zeros((Bp,), np.int32)
+        toks = np.zeros((Bp, 1), np.int32)
+        for i, r in enumerate(active):
+            p_new = r.ctx_len - 1
+            tables[i] = plan.block_table_matrix(r.rid, Pp,
+                                                n_tokens=p_new + 1)
+            slots, offs = plan.scatter_indices(r.rid, p_new, 1)
+            wslot[i] = slots[:, 0]
+            lengths[i] = p_new + 1
+            woff[i] = offs[0]
+            pos[i] = p_new
+            toks[i, 0] = r.output[-1]
+        Gp = _bucket0(plan.gather_count)
+        exch = plan.exchange_arrays(Gp)
+        self._decode_shapes.add((Bp, Pp, Gp))
+        host = exch + (tables, lengths, wslot, woff, toks, pos)
+        h2d = sum(a.nbytes for a in host)
+        dev = self._upload(host)
+        self._c_gather_d2d.inc(plan.d2d_bytes())
+        with self.tracer.span("paged_decode",
+                              args={"batch": Bp, "pages": Pp}):
+            kps, vps = self.kv.pools()
+            logits, kps, vps = self._paged_fn(self.params, kps, vps, *dev)
+            self.kv.install_pools(kps, vps)
+            self.tracer.sync(logits)
+        self._c_model_calls.inc()
+        self._c_h2d.inc(h2d)
+        nxt = logits[:B].argmax(dim=-1).to(torch.int32).cpu().numpy()
+        # the whole padded logits array is metered, as the reference does
+        self._c_d2h.inc(logits.numel() * logits.element_size())
+        for r in active:
+            # the reservation already advanced kv.lengths; the step
+            # scattered the token K/V into those pages on device
+            grow_context(self.workers, self.attn_reqs[r.rid], 1)
+        for i, r in enumerate(active):
+            r.output.append(int(nxt[i]))
+            if r.done:
+                self._finish(r)
 
     # ------------------------------------------------------------ fused step
     def _fused_step(self) -> None:
@@ -656,8 +846,14 @@ class InferenceEngine:
                 # chunked: prompt writes spread over the next steps,
                 # interleaved with decode — no head-of-line blocking
                 self.prefilling.append(req)
-            # ONE model call packs decode rows + prefill chunks
-            self._fused_step()
+            if self.use_fused:
+                # ONE model call packs decode rows + prefill chunks
+                self._fused_step()
+            else:
+                # a prefill-chunk call, then a decode call in which the
+                # requests that just finished their prompts already decode
+                self._prefill_chunk_step()
+                self._decode_batch()
             # Θ-triggered rebalance (at most one request per step, §5.3)
             d = maybe_rebalance(self.workers, list(self.attn_reqs.values()),
                                 theta=self.ecfg.theta)

@@ -41,7 +41,8 @@ SNAP_KEYS = ["migrate/d2d_bytes", "migrate/partial",
 
 
 def make_pair(**ecfg):
-    kw = dict(max_batch=8, max_seq=96, page_size=8, prefill_chunk=8, **ecfg)
+    kw = dict(max_batch=8, max_seq=96, page_size=8, prefill_chunk=8)
+    kw.update(ecfg)
     j = JEngine(JCFG, JPARAMS, JCluster.build(HOSTS), primary_ids=[0],
                 pool_ids=[1], engine_cfg=JEngineConfig(**kw))
     t = TEngine(TCFG, TPARAMS, TCluster.build(HOSTS), primary_ids=[0],

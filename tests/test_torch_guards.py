@@ -66,7 +66,7 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
 
 
 @pytest.mark.parametrize("ecfg, item", [
-    (dict(step_mode="split"), "item 7"),
+    (dict(step_mode="split", decode_mode="dense"), "item 7"),
     (dict(decode_mode="dense"), "item 7"),
     (dict(prefill_mode="dense"), "item 7"),
     (dict(trace_modules=True, telemetry=True), "item 8"),
@@ -78,6 +78,22 @@ def test_unported_engine_modes_raise(ecfg, item):
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine(cfg, params, cluster, primary_ids=[0], pool_ids=[1],
                         engine_cfg=EngineConfig(**ecfg), device="cpu")
+
+
+def test_split_schedule_is_ported_and_unknown_modes_refused():
+    cfg = smoke_config("qwen3-14b")
+    params = init_params(cfg, 0, device="cpu")
+    cluster = ClusterSpec.build([("A100", 1), ("3090", 1)])
+    eng = InferenceEngine(cfg, params, cluster, primary_ids=[0],
+                          pool_ids=[1],
+                          engine_cfg=EngineConfig(step_mode="split"),
+                          device="cpu")
+    assert (eng.use_fused, eng.use_paged, eng.use_paged_prefill) \
+        == (False, True, True)
+    with pytest.raises(ValueError, match="step_mode"):
+        InferenceEngine(cfg, params, cluster, primary_ids=[0], pool_ids=[1],
+                        engine_cfg=EngineConfig(step_mode="fuse"),
+                        device="cpu")
 
 
 @pytest.mark.parametrize("override", [dict(sliding_window=16),

@@ -120,7 +120,7 @@ def test_cpu_tensors_never_touch_the_loader(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel loader touched for CPU tensors")
     monkeypatch.setattr(build, "load", boom)
-    before = ops.LAUNCHES
+    before = dict(ops.LAUNCHES)
     case = make_case(seed=1, **CASES["decode_r4"])
     _run_both(case, "float32")
     assert ops.LAUNCHES == before
