@@ -6,9 +6,9 @@
 Phases, in order; any failure exits nonzero:
 
   1. card:    the card's name and power limit (nvidia-smi); TF32 off.
-  2. build:   both paged-attention kernels compiled from
-              src/repro_torch/kernels/paged_attention/csrc/, one nvcc
-              process per source, all started together.
+  2. build:   the three kernels compiled from
+              src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/,
+              one nvcc process per source, all started together.
   3. kernels: each kernel against its plain PyTorch version, timed with
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
@@ -17,11 +17,15 @@ Phases, in order; any failure exits nonzero:
               B2 (decode) on 16 decode rows with ragged contexts < 2048 at
               qwen3-14b's shapes in bf16 and fp32, an MHA r = 1 batch at dh
               64 and one at dh 96, a batch with padded rows (lengths 0) and
-              one with out-of-range table entries.
+              one with out-of-range table entries.  B3 (dense flash
+              attention) at qwen3-14b's full prefill (40 over 8 heads, dh
+              128, S 1024, causal) in bf16 and fp32, a sliding-window case, a
+              non-causal case with S not a tile multiple, and MHA cases at dh
+              64 and 96, beside F.scaled_dot_product_attention.
   4. small:   a reduced fp32 engine on the GPU (kernels) against the same
-              engine on the CPU (plain attention), under the fused step and
-              under the split schedule: identical tokens, and split tokens
-              == fused tokens.
+              engine on the CPU (plain attention), under the fused step, the
+              split schedule and the three dense mode combinations: identical
+              tokens, and every mode's tokens == the fused step's.
   5. engine:  the port's InferenceEngine serving qwen3-14b at full width
               and depth with seeded random weights, on a simulated
               A100 + 3090 cluster whose two pool shards both live on this
@@ -35,6 +39,14 @@ Phases, in order; any failure exits nonzero:
               limit must catch).  With --profile the steps after the
               checked ones are traced (device activity only) and their busy
               and idle shares printed.
+  6. dense:   the same weights and requests under prefill_mode="dense": one
+              serial dense prefill per request (B3 in every layer), then
+              split decode calls through B2.  Exact launch counts, the first
+              prefill call's layer-0 B3 launch against the plain version and
+              its logits against a plain-attention re-run (beside a P-rounded
+              and a dropped-key-tile re-run).  Dense decode runs only in the
+              small phase: it copies every request's dense cache through the
+              host on every step.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -74,7 +86,8 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # 0.0145 and 0.0184 for the fused step on an H100) and a fault (plain with
 # one page dropped vs plain: 0.72 and 1.38); PERF.md gives the readings
 LOGITS_LIMIT = 0.1
-NAMES = {"B1": "paged_prefill_attention", "B2": "paged_attention"}
+NAMES = {"B1": "paged_prefill_attention", "B2": "paged_attention",
+         "B3": "flash_attention"}
 
 
 def log(msg: str) -> None:
@@ -349,6 +362,86 @@ def decode_kernel_phase(dev, flush):
     return results
 
 
+# ------------------------------------------------------ B3 (dense flash)
+def visible_pairs(Sq, Sk, causal, window):
+    """(query row, key) pairs the mask keeps: what the work depends on."""
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= qp - kp < window
+    return int(ok.sum())
+
+
+def bound_flash(q, k, causal, window, dname):
+    """(bound_ms, bound_by, bytes, flops): q, k and v read once, the output
+    written once; 4 * dh FLOPs per (query row, visible key)."""
+    B, Hq, Sq, dh = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4.0 * dh * B * Hq * visible_pairs(Sq, k.shape[2], causal, window)
+    return roofline(nbytes, flops, dname) + (nbytes, flops)
+
+
+def sdpa_flash_ms(q, k, v, causal, window, flush):
+    """F.scaled_dot_product_attention on the same inputs (GQA by
+    enable_gqa; the window as a boolean mask)."""
+    import torch.nn.functional as F
+    if window > 0:
+        qp = torch.arange(q.shape[2], device=q.device)[:, None]
+        kp = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 10, flush)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), 10, flush)
+
+
+def flash_kernel_phase(dev, flush):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    qwen = dict(Hq=40, Hkv=8, dh=128)
+    cases = {
+        # qwen3-14b's dense prefill of a 1024-token prompt
+        "prefill": (torch.bfloat16, qwen, 1024, True, 0),
+        "prefill_fp32": (torch.float32, qwen, 1024, True, 0),
+        "window": (torch.bfloat16, qwen, 1024, True, 256),
+        # S not a multiple of the 64-query / 32-key tiles
+        "noncausal": (torch.bfloat16, qwen, 1000, False, 0),
+        # MHA at qwen1.5-0.5b's and phi3-mini's head widths
+        "mha_dh64": (torch.bfloat16, dict(Hq=16, Hkv=16, dh=64), 1024, True,
+                     0),
+        "mha_dh96": (torch.bfloat16, dict(Hq=32, Hkv=32, dh=96), 1024, True,
+                     0),
+    }
+    results = {}
+    for name, (dtype, w, S, causal, window) in cases.items():
+        dname = dtype_name(dtype)
+        g = torch.Generator(device=dev).manual_seed(3)
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+        q = rnd(1, w["Hq"], S, w["dh"])
+        k, v = rnd(1, w["Hkv"], S, w["dh"]), rnd(1, w["Hkv"], S, w["dh"])
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        blind = (ref == 0).all(-1)            # rows that see no key: none
+        max_err = check_kernel(name, got, ref, blind, dname)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 window=window), 20, flush)
+        plain = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), 3, flush)
+        lib = sdpa_flash_ms(q, k, v, causal, window, flush)
+        results[name] = report(
+            "B3", name, list(q.shape), dname, max_err, ms, plain, lib,
+            *bound_flash(q, k, causal, window, dname))
+        results[name].update(kv_shape=list(k.shape), causal=causal,
+                             window=window)
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------- plain re-run variants
 def plain_attention(round_p=False, wrong_page=False):
     """B1's plain version as the wrapper calls it (tables clipped).
@@ -405,6 +498,44 @@ def plain_decode(round_p=False, wrong_page=False):
     return fn
 
 
+def plain_flash(round_p=False, drop_tile=False):
+    """B3's plain version with the wrapper's signature, and its variants:
+    ``round_p`` rounds P to V's type before PV with l summed unrounded (a
+    second exact implementation: the bf16 noise floor of a call's
+    logits); ``drop_tile`` masks keys 64-127 for every row (a fault: one
+    64-key tile dropped, which the logits check must catch)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def fn(q, k, v, *, causal=True, window=0, layout="BHSD", **_):
+        if layout == "BSHD":
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        if not (round_p or drop_tile):
+            o = flash_attention_ref(q, k, v, causal=causal, window=window)
+        else:
+            B, Hq, Sq, dh = q.shape
+            Hkv, Sk = k.shape[1], k.shape[2]
+            qg = q.reshape(B, Hkv, Hq // Hkv, Sq, dh).float()
+            s = torch.einsum("bhrqd,bhkd->bhrqk", qg, k.float()) \
+                / math.sqrt(dh)
+            qp = torch.arange(Sq, device=q.device)[:, None]
+            kp = torch.arange(Sk, device=q.device)[None, :]
+            ok = (qp >= kp) if causal else torch.ones_like(qp >= kp)
+            if window > 0:
+                ok &= qp - kp < window
+            if drop_tile:
+                ok &= (kp < 64) | (kp >= 128)
+            s = s.masked_fill(~ok, float("-inf"))
+            m = s.amax(-1, keepdim=True)
+            pr = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+            l = pr.sum(-1, keepdim=True)
+            pv = pr.to(v.dtype).float() if round_p else pr
+            o = torch.einsum("bhrqk,bhkd->bhrqd", pv, v.float())
+            o = torch.where(l > 0, o / l.clamp(min=1e-30), 0.0)
+            o = o.reshape(B, Hq, Sq, dh).to(q.dtype)
+        return o.transpose(1, 2) if layout == "BSHD" else o
+    return fn
+
+
 # ------------------------------------------------------------- small engine
 def to_device(tree, dev):
     if isinstance(tree, dict):
@@ -422,10 +553,19 @@ def leaves(tree):
     return [tree]
 
 
+SMALL_MODES = {
+    "fused": dict(step_mode="fused"),
+    "split": dict(step_mode="split"),
+    "dense prefill": dict(prefill_mode="dense"),
+    "dense decode": dict(decode_mode="dense"),
+    "dense both": dict(prefill_mode="dense", decode_mode="dense"),
+}
+
+
 def small_engine_phase(dev):
     """Reduced fp32 qwen3 family (dh 64, so the kernels take it): under
-    each schedule the engine on the GPU must emit the CPU engine's tokens,
-    and the split schedule the fused step's."""
+    each schedule and mode combination the engine on the GPU must emit the
+    CPU engine's tokens, and every mode the fused step's."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.serving import EngineConfig, InferenceEngine, Request
@@ -433,7 +573,7 @@ def small_engine_phase(dev):
     cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
     cpu_params = init_params(cfg, 0, device="cpu")
     outs = {}
-    for mode in ("fused", "split"):
+    for mode, modes in SMALL_MODES.items():
         for device in ("cpu", dev):
             eng = InferenceEngine(
                 cfg, to_device(cpu_params, device),
@@ -441,7 +581,7 @@ def small_engine_phase(dev):
                 primary_ids=[0], pool_ids=[1],
                 engine_cfg=EngineConfig(max_batch=8, max_seq=128,
                                         page_size=16, prefill_chunk=16,
-                                        step_mode=mode), device=device)
+                                        **modes), device=device)
             rng = np.random.default_rng(0)
             for i in range(6):
                 eng.submit(Request(rid=i, prompt=[
@@ -456,9 +596,11 @@ def small_engine_phase(dev):
                 f"!= CPU tokens {outs[mode, 'cpu']}")
         log(f"small engine ({mode}): 6 requests, GPU == CPU token streams "
             f"({sum(len(v) for v in outs[mode, 'cpu'].values())} tokens)")
-    if outs["split", "cpu"] != outs["fused", "cpu"]:
-        raise AssertionError("small engine: split tokens != fused tokens")
-    log("small engine: split == fused token streams")
+    for mode in SMALL_MODES:
+        if outs[mode, "cpu"] != outs["fused", "cpu"]:
+            raise AssertionError(f"small engine: {mode} tokens != fused "
+                                 f"tokens")
+    log(f"small engine: {', '.join(SMALL_MODES)}: identical token streams")
 
 
 # ------------------------------------------------------------- engine phase
@@ -497,6 +639,28 @@ def rows_of(idx, mode):
             int(idx[0].shape[0]))
 
 
+def submit_requests(eng, cfg, seed):
+    """The engine phases' 16 requests: prompts of 128-1024 tokens drawn
+    from ``seed``, 32 new tokens each.  Returns (n_req, new_tokens,
+    prompt lengths)."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    n_req, new_tokens = 16, 32
+    prompt_lens = rng.integers(128, 1025, n_req)
+    for i, n in enumerate(prompt_lens):
+        eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
+            0, cfg.vocab_size, int(n))], max_new_tokens=new_tokens))
+    return n_req, new_tokens, prompt_lens
+
+
+def span_ms(eng, name, skip=()):
+    """(durations, median, p90) in ms of the tracer's ``name`` spans, less
+    the calls in ``skip`` (the checked ones)."""
+    durs = [sp.dur * 1e3 for i, sp in enumerate(eng.tracer.spans(name))
+            if i not in skip]
+    return durs, statistics.median(durs), sorted(durs)[int(0.9 * len(durs))]
+
+
 def engine_phase(dev, profile, cfg, params, mode, seed=0):
     """Serve 16 requests through the full-width engine under ``mode``
     ("fused" or "split") and hold two of its calls against plain re-runs.
@@ -505,7 +669,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    from repro_torch.serving import EngineConfig, InferenceEngine
 
     eng = InferenceEngine(
         cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
@@ -514,12 +678,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
                                 prefill_chunk=64, telemetry=True,
                                 step_mode=mode),
         device=dev)
-    rng = np.random.default_rng(seed)
-    n_req, new_tokens = 16, 32
-    prompt_lens = rng.integers(128, 1025, n_req)
-    for i, n in enumerate(prompt_lens):
-        eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
-            0, cfg.vocab_size, int(n))], max_new_tokens=new_tokens))
+    n_req, new_tokens, prompt_lens = submit_requests(eng, cfg, seed)
 
     # the checked call: the fused step, or the split schedule's decode call
     if mode == "fused":
@@ -652,12 +811,6 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     gen = n_req * new_tokens
     n_prompt = int(prompt_lens.sum())
 
-    def ms_stats(name, skip=()):
-        durs = [sp.dur * 1e3 for i, sp in enumerate(eng.tracer.spans(name))
-                if i not in skip]
-        return durs, statistics.median(durs), sorted(durs)[
-            int(0.9 * len(durs))]
-
     out = dict(mode=mode, launches=launches, steps=steps, wall_s=wall,
                check_s=check_s[0], tokens_per_s=gen / wall,
                tokens_per_s_with_prompts=(gen + n_prompt) / wall,
@@ -672,7 +825,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         f"{(gen + n_prompt) / wall:.1f} tokens/s incl. prompts; peak memory "
         f"{peak_gb:.1f} GB")
     if mode == "fused":
-        durs, med, p90 = ms_stats("fused_step", checked_calls)
+        durs, med, p90 = span_ms(eng, "fused_step", checked_calls)
         args = [sp.args for sp in eng.tracer.spans("fused_step")]
         real = sum(a["decode_rows"] + a["prefill_tokens"] for a in args)
         padded = sum(a["batch"] * a["chunk"] for a in args)
@@ -699,8 +852,8 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     else:
         n_dec = eng.tracer.count("paged_decode")
         n_pre = eng.tracer.count("prefill_chunk")
-        ddurs, dmed, dp90 = ms_stats("paged_decode", checked_calls)
-        pdurs, pmed, pp90 = ms_stats("prefill_chunk")
+        ddurs, dmed, dp90 = span_ms(eng, "paged_decode", checked_calls)
+        pdurs, pmed, pp90 = span_ms(eng, "prefill_chunk")
         dargs = [sp.args for sp in eng.tracer.spans("paged_decode")]
         log(f"engine (split): decode-call ms median {dmed:.2f} p90 "
             f"{dp90:.2f} ({n_dec} calls); prefill-call ms median {pmed:.2f} "
@@ -762,6 +915,175 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     return out
 
 
+def dense_prefill_phase(dev, profile, cfg, params, seed=0):
+    """Serve the engine phases' 16 requests under prefill_mode="dense":
+    each admitted request gets one serial dense ``transformer.prefill``
+    (B3 in every layer), its K/V stored into the pools, then the split
+    schedule's decode calls (B2).  The first prefill call is held against
+    plain re-runs; with ``profile`` the device is traced from the end of
+    that check to the end of the run (the other 15 prefill calls and every
+    decode call).  The launch counts are set to 0 just before the run and
+    read just after it."""
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(
+        cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
+                                prefill_chunk=64, telemetry=True,
+                                prefill_mode="dense"),
+        device=dev)
+    assert (eng.use_fused, eng.use_paged, eng.use_paged_prefill) \
+        == (False, True, False)
+    n_req, new_tokens, prompt_lens = submit_requests(eng, cfg, seed)
+    call_fn = eng._prefill_fn.fn
+    kernel_fn = fa_ops.flash_attention
+    check = {}
+    check_s = [0.0]                        # wall seconds the check adds
+    win_t0 = []                            # start of the traced window
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+
+    def rerun(p, batch, attn_fn):
+        fa_ops.flash_attention = attn_fn
+        try:
+            return T.prefill(cfg, p, batch, max_seq=eng.ecfg.max_seq)[0]
+        finally:
+            fa_ops.flash_attention = kernel_fn
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def checked(p, batch):
+        if check:
+            return call_fn(p, batch)
+        layer0 = []                        # layer 0's inputs and output
+
+        def capture(*a, **kw):
+            o = kernel_fn(*a, **kw)
+            if not layer0:
+                layer0.append((a, kw, o))
+            return o
+
+        fa_ops.flash_attention = capture
+        try:
+            out = call_fn(p, batch)
+        finally:
+            fa_ops.flash_attention = kernel_fn
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        launches = dict(fa_ops.LAUNCHES)
+        a0, kw0, o0 = layer0[0]
+        r0 = plain_flash()(*a0, **kw0).float()
+        e0 = (o0.float() - r0).abs()
+        logits = out[0]
+        ref = rerun(p, batch, plain_flash())
+        floor = rerun(p, batch, plain_flash(round_p=True))
+        fault = rerun(p, batch, plain_flash(drop_tile=True))
+        assert fa_ops.LAUNCHES == launches
+        check.update(ctx=int(batch["tokens"].shape[1]),
+                     rel_l2=rel_l2(logits, ref),
+                     floor_rel_l2=rel_l2(floor, ref),
+                     fault_rel_l2=rel_l2(fault, ref),
+                     max_abs=float((logits - ref).abs().max()),
+                     argmax_agree=bool(logits.argmax() == ref.argmax()),
+                     finite=bool(torch.isfinite(logits).all()),
+                     layer0_max_abs=float(e0.max()),
+                     layer0_ok=bool((e0 <= TOL["bfloat16"]
+                                     * (1 + r0.abs())).all()))
+        del layer0, a0, o0, r0, e0, ref, floor, fault
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t
+        if profile:
+            prof.start()
+        win_t0.append(time.perf_counter())
+        return out
+
+    eng._prefill_fn.fn = checked
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (fa_ops, pa_ops):           # the main path's run starts here
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    drained = eng.run_until_drained(5000)
+    torch.cuda.synchronize()
+    win_wall = time.perf_counter() - win_t0[0]
+    if profile:
+        prof.stop()
+    launches = {**pa_ops.LAUNCHES, **fa_ops.LAUNCHES}   # ... and ends here
+    eng._prefill_fn.fn = call_fn
+    wall = time.perf_counter() - t0 - check_s[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = int(eng.metrics["steps"])
+    gen = n_req * new_tokens
+    n_prompt = int(prompt_lens.sum())
+    n_pre = eng.tracer.count("prefill")
+    n_dec = eng.tracer.count("paged_decode")
+    pdurs, pmed, pp90 = span_ms(eng, "prefill", {0})
+    ddurs, dmed, dp90 = span_ms(eng, "paged_decode")
+    out = dict(mode="dense_prefill", launches=launches, steps=steps,
+               wall_s=wall, check_s=check_s[0], tokens_per_s=gen / wall,
+               tokens_per_s_with_prompts=(gen + n_prompt) / wall,
+               checks={"prefill": check}, peak_gb=peak_gb,
+               prefill_calls=n_pre, decode_calls=n_dec,
+               prefill_ms_median=pmed, prefill_ms_p90=pp90,
+               decode_ms_median=dmed, decode_ms_p90=dp90,
+               prefill_ms=pdurs, decode_ms=ddurs,
+               tokens={r.rid: r.output for r in eng.finished})
+    log(f"engine (dense prefill): {n_req} requests, prompts {n_prompt} "
+        f"tokens, generated {gen}; {steps} steps, {n_pre} prefill + {n_dec} "
+        f"decode calls in {wall:.2f} s wall ({check_s[0]:.2f} s of checks "
+        f"left out); {gen / wall:.2f} generated tokens/s; "
+        f"{(gen + n_prompt) / wall:.1f} tokens/s incl. prompts; peak memory "
+        f"{peak_gb:.1f} GB")
+    log(f"engine (dense prefill): prefill-call ms median {pmed:.2f} p90 "
+        f"{pp90:.2f} (the checked first call left out); decode-call ms "
+        f"median {dmed:.2f} p90 {dp90:.2f}")
+    log(f"engine (dense prefill): kernel launches B3 {launches[NAMES['B3']]}"
+        f" == {cfg.n_layers} layers x {n_pre} prefill calls, B2 "
+        f"{launches[NAMES['B2']]} == {cfg.n_layers} layers x {n_dec} decode "
+        f"calls, B1 {launches[NAMES['B1']]}; redispatches "
+        f"{int(eng.metrics['redispatches'])}, evictions "
+        f"{int(eng.metrics['evictions'])}")
+    log(f"engine (dense prefill): checked prefill call ({check['ctx']} "
+        f"tokens) kernel vs plain: layer-0 attention max abs err "
+        f"{check['layer0_max_abs']:.3g} (tol {TOL['bfloat16']}); re-run "
+        f"logits rel L2 {check['rel_l2']:.4g} (limit {LOGITS_LIMIT}; plain "
+        f"with P rounded {check['floor_rel_l2']:.4g}, plain with keys 64-127 "
+        f"dropped {check['fault_rel_l2']:.4g}), max abs "
+        f"{check['max_abs']:.3g}, same argmax {check['argmax_agree']}")
+    assert drained and len(eng.finished) == n_req, "not every request done"
+    assert all(len(r.output) == new_tokens for r in eng.finished)
+    assert all(0 <= t < cfg.vocab_size for r in eng.finished
+               for t in r.output)
+    eng.kv.check_invariants()
+    assert eng.metrics["model_calls"] == n_pre + n_dec
+    assert eng.metrics["prefill_chunks"] == 0 and n_pre >= n_req
+    assert launches[NAMES["B3"]] == cfg.n_layers * n_pre, launches
+    assert launches[NAMES["B2"]] == cfg.n_layers * n_dec > 0, launches
+    assert launches[NAMES["B1"]] == 0, launches
+    if not (check["finite"] and check["layer0_ok"]
+            and check["rel_l2"] <= LOGITS_LIMIT):
+        raise AssertionError(f"prefill call logits disagree with the plain "
+                             f"re-run: {check}")
+    assert check["fault_rel_l2"] > LOGITS_LIMIT, check
+    log(f"engine (dense prefill): window after the check: prefill calls "
+        f"2-{n_pre} and every decode call, {win_wall:.3f} s wall"
+        f"{' under the profiler' if profile else ''}")
+    out.update(window_wall_s=win_wall)
+    if profile:
+        out.update(profile_summary(prof, steps, 0, steps, win_wall,
+                                   "dense prefill"))
+    return out
+
+
 def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
     avg = prof.key_averages()
     events = [(e.key, e.self_device_time_total) for e in avg
@@ -771,6 +1093,7 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
     n_ops = sum(e.count for e in avg if e.self_device_time_total > 0)
     b1_us = sum(us for k, us in events if "paged_prefill_kernel" in k)
     b2_us = sum(us for k, us in events if "paged_decode_" in k)
+    b3_us = sum(us for k, us in events if "flash_kernel" in k)
     log(f"profile ({mode}): steps {win_step0 + 1}-{steps} ({n_win} steps), "
         f"device busy (kernels and copies) {dev_us / 1e3:.1f} ms of "
         f"{win_wall * 1e3:.1f} ms wall of the same steps: busy share "
@@ -780,12 +1103,14 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
         f"{n_ops / n_win:.0f} device operations; B1 "
         f"{b1_us / 1e3 / n_win:.2f} ms per step ({b1_us / dev_us:.3f} of "
         f"busy time), B2 {b2_us / 1e3 / n_win:.2f} ms per step "
-        f"({b2_us / dev_us:.3f})")
+        f"({b2_us / dev_us:.3f}), B3 {b3_us / 1e3 / n_win:.2f} ms per step "
+        f"({b3_us / dev_us:.3f})")
     for k, us in sorted(events, key=lambda e: -e[1])[:15]:
         log(f"profile ({mode}): {us / 1e3:10.2f} ms  {k[:100]}")
     return dict(profile_busy_us=dev_us, profile_ops=n_ops,
                 profile_b1_us=b1_us,
-                profile_b2_us=b2_us, profile_events=dict(events))
+                profile_b2_us=b2_us, profile_b3_us=b3_us,
+                profile_events=dict(events))
 
 
 def full_width_params(dev, seed=0):
@@ -805,11 +1130,11 @@ def full_width_params(dev, seed=0):
 
 
 def kernel_entry(kid, case, launches):
-    src = "src/repro_torch/kernels/paged_attention/csrc/"
-    line = {"B1": 132, "B2": 179}[kid]
+    pkg = "flash_attention" if kid == "B3" else "paged_attention"
+    line = {"B1": 132, "B2": 179, "B3": 90}[kid]
     return {"name": NAMES[kid], "route": "cuda",
-            "source": f"{src}{NAMES[kid]}.cu",
-            "replaces": f"src/repro/kernels/paged_attention/kernel.py:{line}",
+            "source": f"src/repro_torch/kernels/{pkg}/csrc/{NAMES[kid]}.cu",
+            "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
             "launches": launches, "max_abs_err": case["max_abs_err"],
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -842,14 +1167,17 @@ def main(argv=None) -> int:
         f"{torch.backends.cudnn.allow_tf32}")
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops
+    sources = ops.SOURCES + fa_ops.SOURCES
     t0 = time.perf_counter()
-    build.build_all(ops.SOURCES)
+    build.build_all(sources)
     for name, _ in ops.SOURCES:
         ops._library(name)
-    log(f"build: {', '.join(n for n, _ in ops.SOURCES)} built in parallel "
+    fa_ops._library()
+    log(f"build: {', '.join(n for n, _ in sources)} built in parallel "
         f"and loaded in {time.perf_counter() - t0:.1f} s")
-    for name, _ in ops.SOURCES:
+    for name, _ in sources:
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
@@ -857,10 +1185,11 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     b1 = prefill_kernel_phase(dev, flush)
     b2 = decode_kernel_phase(dev, flush)
+    b3 = flash_kernel_phase(dev, flush)
     del flush
     small_engine_phase(dev)
-    # both engine phases serve the same weights; the fused engine's pools
-    # are freed before the split engine allocates its own
+    # the engine phases serve the same weights; each engine's pools are
+    # freed before the next engine allocates its own
     cfg, params = full_width_params(dev)
     fused = engine_phase(dev, args.profile, cfg, params, "fused")
     gc.collect()                           # the fused engine and its pools
@@ -873,20 +1202,30 @@ def main(argv=None) -> int:
     total = sum(len(t) for t in fused["tokens"].values())
     log(f"engine: split vs fused tokens agree at {same} of {total} "
         f"positions (bf16; B2 and B1 round differently)")
+    gc.collect()                           # the split engine and its pools
+    torch.cuda.empty_cache()
+    dense = dense_prefill_phase(dev, args.profile, cfg, params)
+    same_dense = sum(a == b for rid, toks in split["tokens"].items()
+                     for a, b in zip(toks, dense["tokens"][rid]))
+    log(f"engine: dense-prefill vs split tokens agree at {same_dense} of "
+        f"{total} positions (bf16; B3 and B1 round differently)")
     del params
     torch.cuda.empty_cache()
 
-    b1_launches = fused["launches"][NAMES["B1"]] \
-        + split["launches"][NAMES["B1"]]
-    entries = [kernel_entry("B1", b1["mixed"], b1_launches),
-               kernel_entry("B2", b2["decode"],
-                            split["launches"][NAMES["B2"]])]
+    runs = (fused, split, dense)
+    entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
+                                           for r in runs))
+               for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
+                                 ("B3", b3["prefill"]))]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "b1_cases": b1, "b2_cases": b2,
+            {"card": card, "b1_cases": b1, "b2_cases": b2, "b3_cases": b3,
              "engine_fused": fused, "engine_split": split,
-             "split_fused_token_agreement": [same, total]}, indent=1))
+             "engine_dense_prefill": dense,
+             "split_fused_token_agreement": [same, total],
+             "dense_split_token_agreement": [same_dense, total]},
+            indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

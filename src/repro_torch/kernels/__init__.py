@@ -6,6 +6,8 @@ reference's Pallas TPU kernels.
                     rows are 1-token chunks, and the split schedule's
                     prefill call) and decode attention (the split
                     schedule's decode call).
+  flash_attention — dense causal / sliding-window GQA attention (the
+                    dense prefill, ``prefill_mode="dense"``).
 
 Each kernel package ships ``ops.py`` (the wrappers: CUDA kernel on CUDA
 tensors, plain version on CPU tensors), ``ref.py`` (the plain PyTorch

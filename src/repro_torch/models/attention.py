@@ -1,13 +1,21 @@
-"""GQA/MHA attention against the device-resident paged KV pool (with
-qk-norm, qkv-bias and RoPE).  Weights are ``(in, out)``: ``x @ W``.
+"""GQA/MHA attention (with qk-norm, qkv-bias and RoPE).  Weights are
+``(in, out)``: ``x @ W``.
 
-The serving steps' attention: the new K/V is scattered in place into the
-layer's pool, then a paged kernel attends through the block tables — the
-chunked paged-prefill kernel for a chunk of rows (the fused step and the
-split schedule's prefill call), the paged decode kernel for one new token
-per row (the split schedule's decode call).  MLA and the dense-cache
-attention variants wait for later slices (ROADMAP Queue A, items 7 and
-10).
+Two families of attention, as in the reference:
+
+  * against the device-resident paged KV pool (the serving steps): the new
+    K/V is scattered in place into the layer's pool, then a paged kernel
+    attends through the block tables — the chunked paged-prefill kernel
+    for a chunk of rows (the fused step and the split schedule's prefill
+    call), the paged decode kernel for one new token per row (the split
+    schedule's decode call);
+  * against dense per-request caches (the dense oracle modes):
+    ``gqa_full`` attends over a whole prompt through the dense
+    flash-attention kernel and returns its K/V as cache entries;
+    ``gqa_decode`` / ``gqa_decode_carry`` decode one token with the plain
+    ``common.decode_attention``.
+
+MLA waits for a later slice (ROADMAP Queue A, item 10).
 """
 
 from __future__ import annotations
@@ -16,8 +24,19 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.models.common import apply_rope, rmsnorm
+from repro_torch.models.common import (DTYPES, apply_rope, decode_attention,
+                                       rmsnorm)
+
+
+def gqa_cache_init(cfg, batch: int, max_seq: int, device) -> Dict:
+    """One layer's dense cache: k, v (batch, max_seq, Hkv, dh) zeros in
+    the cache storage dtype."""
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = DTYPES[cfg.kv_dtype]
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def _gqa_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -39,6 +58,62 @@ def _gqa_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_full(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+             positions: torch.Tensor, window: int = 0
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention (the dense prefill): causal (``cfg.causal``)
+    and optionally sliding-window GQA over the whole (B, S) block through
+    the dense flash-attention kernel.  Returns (out (B, S, d), cache
+    entries k, v (B, S, Hkv, dh) in the cache storage dtype)."""
+    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    out = fa_ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                 layout="BSHD")
+    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    cdt = DTYPES[cfg.kv_dtype]
+    return out, {"k": k.to(cdt), "v": v.to(cdt)}
+
+
+def gqa_decode(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+               window: int = 0
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode one token per row against one layer's dense cache.
+
+    x: (B, 1, d); cache k, v (B, S, Hkv, dh); pos: (B,) absolute position
+    of the new token.  Returns (out (B, 1, d), the updated cache — new
+    tensors: the input cache is left as it was)."""
+    B = x.shape[0]
+    q, k, v = _gqa_qkv(cfg, p, x, pos[:, None])
+    bidx, p_ = torch.arange(B, device=x.device), pos.long()
+    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    k_cache[bidx, p_] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, p_] = v[:, 0].to(v_cache.dtype)
+    out = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                           kv_len=pos + 1, window=window)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def gqa_decode_carry(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                     k_full: torch.Tensor, v_full: torch.Tensor, idx: int,
+                     pos: torch.Tensor, window: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode one token per row against the full stacked dense caches
+    (L, B, S, Hkv, dh): the token's K/V is written IN PLACE at
+    (idx, b, pos_b) (B*Hkv*dh elements), then layer ``idx`` is attended.
+    Returns (out (B, 1, d), k_full, v_full) — the same tensors."""
+    B = x.shape[0]
+    q, k, v = _gqa_qkv(cfg, p, x, pos[:, None])
+    bidx, p_ = torch.arange(B, device=x.device), pos.long()
+    k_full[idx, bidx, p_] = k[:, 0].to(k_full.dtype)
+    v_full[idx, bidx, p_] = v[:, 0].to(v_full.dtype)
+    out = decode_attention(q, k_full[idx].to(q.dtype),
+                           v_full[idx].to(q.dtype), kv_len=pos + 1,
+                           window=window)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, k_full, v_full
 
 
 def gqa_decode_paged(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Shared model building blocks: norms and RoPE.
+"""Shared model building blocks: norms, RoPE and the dense decode
+attention.
 
 Plain functions on tensors.  Compute follows the reference's
 mixed-precision discipline: matmuls in the config dtype (bf16 at full
@@ -6,6 +7,8 @@ size), norm statistics and rotary angles in fp32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,3 +46,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, d*); ``bias`` (fp32,
+    additive) broadcast to (B, Hkv, r, Sq, Sk).  GQA by folding
+    Hq = Hkv * r.  Scores and softmax in fp32, the weights rounded to v's
+    dtype before the PV product (fp32 sums, one rounding of the output),
+    as the reference's einsums with fp32 accumulation."""
+    B, Sq, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    r = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, r, dh)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float()) \
+        * scale
+    w = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w.float(), v.float())
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(v.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token decode: q (B, 1, Hq, dh); caches (B, S, Hkv, d*);
+    kv_len (B,).  Masks positions >= kv_len (and < kv_len - window when
+    ``window`` > 0).  The dense oracle's attention: plain PyTorch, as the
+    reference's is plain jnp."""
+    S = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    lens = kv_len.long()[:, None]
+    valid = k_pos < lens
+    if window > 0:
+        valid &= k_pos >= lens - window
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, None, :]
+    return attention_core(q, k_cache, v_cache, bias, scale)

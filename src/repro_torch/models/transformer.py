@@ -1,17 +1,20 @@
-"""Model assembly for the paged serving steps.
+"""Model assembly for the serving steps.
 
 Parameters are a plain dict mirroring the reference's pytree:
 ``{"groups": [per-group dict with a leading layer axis], "embed",
-"final_norm", "lm_head"}`` (see ``repro_torch.weights``).  Layers run as a
-Python loop over the groups; each layer's parameters are views of the
-stacked tensors.  Pools are updated in place, but every step still
-returns ``(logits, kpools, vpools)`` so the engine reads like the
-reference.
+"final_norm", "lm_head"}`` (see ``repro_torch.weights``).  Every forward
+pass runs the one layer loop ``_layer_stack`` (the reference's scanned
+``backbone`` / ``_apply_full`` / ``_apply_decode*`` bodies); what differs
+is the attention each pass hands it.  Pools are updated in place, but
+every paged step still returns ``(logits, kpools, vpools)`` so the engine
+reads like the reference.
 
-The paged steps are ported: the fused step, and the split schedule's
-prefill-chunk and decode calls, each over per-device pool shards.
-Prefill/decode against dense caches, training and the traced twins wait
-for later slices (ROADMAP Queue A, items 7, 8 and 11).
+Ported: the paged steps (the fused step, and the split schedule's
+prefill-chunk and decode calls, each over per-device pool shards) and the
+dense oracle model (``prefill`` through the flash-attention kernel,
+``decode_step`` against dense caches, "carry" and "stacked").  Training
+and the traced twins wait for later slices (ROADMAP Queue A, items 8 and
+11).
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.device import resolve
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
+Cache = Dict[str, Any]
 Pools = Dict[int, torch.Tensor]
 
 
@@ -60,6 +65,42 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
         else:
             out.append((k, 1, w))
     return out
+
+
+def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """(group, index within the group, attention window) of every layer,
+    in order."""
+    return [(gi, li, win) for gi, (_kind, n, win)
+            in enumerate(layer_groups(cfg)) for li in range(n)]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> Cache:
+    """Dense decode caches: ``{"groups": [per-group {"k", "v"} with shape
+    (n_layers, batch, max_seq, Hkv, dh)], "pos": (batch,) int32}``."""
+    dev = resolve(device)
+    groups = []
+    for kind, n, _win in layer_groups(cfg):
+        if kind != "gqa_mlp":
+            raise NotImplementedError(
+                f"layer kind {kind!r} is not ported (ROADMAP Queue A, item "
+                f"2: moe_apply; item 10: other model families)")
+        one = attn.gqa_cache_init(cfg, batch, max_seq, dev)
+        groups.append({k: v[None].repeat((n,) + (1,) * v.ndim)
+                       for k, v in one.items()})
+    return {"groups": groups,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
+                 ) -> torch.Tensor:
+    """Raw model inputs -> the (B, S, d) hidden-state stream (the text
+    frontend: a token embedding lookup)."""
+    if cfg.frontend in ("audio_stub", "vision_stub"):
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} is not ported (ROADMAP Queue A, "
+            f"item 10: encoder-only, audio and vision stubs)")
+    return params["embed"][batch["tokens"].long()]
 
 
 def _lm_head(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -111,6 +152,71 @@ def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     cfg, {k: v[li] for k, v in gp["mlp"].items()}, xn)
         layer0 += n
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
+            lengths: torch.Tensor = None) -> Tuple[torch.Tensor, Cache]:
+    """Process the full prompt block (B, S) with dense attention (the
+    flash-attention kernel per layer); returns (last-token logits (B,
+    vocab) fp32, dense caches holding positions [0, S) and zeros up to
+    ``max_seq``, ``pos`` = lengths).  ``lengths`` (B,) marks true prompt
+    lengths of right-padded rows (default S)."""
+    x = embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    if S > max_seq:
+        raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
+    positions = torch.arange(S, device=x.device)[None, :]
+    caches = init_cache(cfg, B, max_seq, x.device)["groups"]
+    slots = _layer_slots(cfg)
+
+    def attend(p_attn, xn, idx):
+        gi, li, win = slots[idx]
+        out, c = attn.gqa_full(cfg, p_attn, xn, positions, win)
+        caches[gi]["k"][li, :, :S] = c["k"]
+        caches[gi]["v"][li, :, :S] = c["v"]
+        return out
+
+    h = _layer_stack(cfg, params, x, attend)
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    last = h[torch.arange(B, device=h.device), lengths.long() - 1]
+    logits = (last @ _lm_head(cfg, params)).float()
+    return logits, {"groups": caches, "pos": lengths.to(torch.int32)}
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One decode step for all rows against dense caches.  tokens: (B, 1)
+    int.  ``cfg.decode_impl`` selects the cache update, as in the
+    reference: "carry" writes each layer's token K/V in place into the
+    given stacked caches (which the returned cache holds); "stacked"
+    leaves them as they were and returns new stacked caches.
+    Returns (logits (B, vocab) fp32, cache with ``pos`` + 1)."""
+    assert not cfg.is_encoder_only, "encoder-only archs have no decode step"
+    pos = cache["pos"]
+    groups = cache["groups"]
+    slots = _layer_slots(cfg)
+    carry = cfg.decode_impl == "carry"
+    stacked: List[Dict[str, list]] = [{"k": [], "v": []} for _ in groups]
+
+    def attend(p_attn, xn, idx):
+        gi, li, win = slots[idx]
+        g = groups[gi]
+        if carry:
+            return attn.gqa_decode_carry(cfg, p_attn, xn, g["k"], g["v"], li,
+                                         pos, win)[0]
+        out, c = attn.gqa_decode(cfg, p_attn, xn,
+                                 {"k": g["k"][li], "v": g["v"][li]}, pos,
+                                 win)
+        stacked[gi]["k"].append(c["k"])
+        stacked[gi]["v"].append(c["v"])
+        return out
+
+    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
+    logits = (h[:, 0] @ _lm_head(cfg, params)).float()
+    if not carry:
+        groups = [{k: torch.stack(v) for k, v in g.items()} for g in stacked]
+    return logits, {"groups": groups, "pos": pos + 1}
 
 
 def _paged_chunk_forward(cfg: ModelConfig, params: Params,

@@ -14,7 +14,13 @@ The paper's control loop, as in ``repro.serving.engine``:
             (``transformer.sharded_prefill_chunk``) and one decode batch
             (``transformer.sharded_decode_step``).  Either way K/V is
             written in place into the pools and attended through block
-            tables by hand-written CUDA kernels;
+            tables by hand-written CUDA kernels.  The dense oracle modes
+            (``prefill_mode="dense"``: one serial ``transformer.prefill``
+            per admitted request through the flash-attention kernel, its
+            K/V then stored into the pools; ``decode_mode="dense"``: the
+            pages gathered into dense host caches for
+            ``transformer.decode_step``) run the split schedule, as in the
+            reference;
   balance — Θ-triggered re-dispatching and device-local LIFO handling of
             memory exhaustion (§5.3), with migration bytes scheduled by the
             Hauler into compute-overlap windows;
@@ -26,9 +32,8 @@ The cluster's device classes are simulated: every pool shard lives on the
 one torch ``device`` the engine runs on.  Shapes are pow2-bucketed as in
 the reference, so each model call sees at most ``fused_bucket_count()``
 (``bucket_count()`` and ``prefill_bucket_count()`` for the split calls)
-distinct shapes.  Both paged schedules are ported; the dense oracle modes
-and the per-module probe raise ``NotImplementedError`` naming their
-ROADMAP item.
+distinct shapes.  Every mode combination is ported; the per-module probe
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -93,8 +98,9 @@ class EngineConfig:
     theta: float = 0.5              # re-dispatch trigger (paper Θ)
     cache_gb_per_device: Optional[Dict[int, float]] = None
     max_seq: int = 512
-    # "paged": device-resident pools + hand-written kernels; only "paged"
-    # is ported (the "dense" oracle modes are ROADMAP Queue A item 7)
+    # "paged": device-resident pools + hand-written paged kernels (fast
+    # path); "dense": the reference/oracle path (serial dense prefill per
+    # request, decode against dense caches gathered from the pages)
     decode_mode: str = "paged"
     prefill_mode: str = "paged"
     prefill_chunk: int = 32         # max prompt tokens per chunk (pow2)
@@ -245,9 +251,15 @@ class InferenceEngine:
             "ttft_p95": lambda: self._h_ttft.percentile(95),
         })
 
-        # _check_supported admitted only configs with both paged paths
-        self.use_paged = engine_cfg.decode_mode == "paged"
-        self.use_paged_prefill = engine_cfg.prefill_mode == "paged"
+        self.use_paged = (engine_cfg.decode_mode == "paged"
+                          and T.supports_paged_decode(cfg))
+        self.use_paged_prefill = (engine_cfg.prefill_mode == "paged"
+                                  and T.supports_paged_prefill(cfg))
+        self._decode_fn = count_recompiles(
+            lambda p, c, t: T.decode_step(cfg, p, c, t), self._c_recompiles)
+        self._prefill_fn = count_recompiles(
+            lambda p, b: T.prefill(cfg, p, b, max_seq=engine_cfg.max_seq),
+            self._c_recompiles)
         # anchor / anchor-sink are fixed per engine; the exchange lane
         # arrays stage remote pool shards' pages through the anchor inside
         # the same model call (see transformer.sharded_decode_step)
@@ -269,7 +281,11 @@ class InferenceEngine:
                 bt, ln, st, ws, wo, t, li), self._c_recompiles)
         self._decode_shapes: Set[Tuple[int, int, int]] = set()
         self._prefill_shapes: Set[Tuple[int, int, int, int]] = set()
-        self.use_fused = engine_cfg.step_mode == "fused"
+        # fused mode needs BOTH paged paths (decode rows and prefill rows
+        # share the chunked-prefill kernel); otherwise the split schedule
+        self.use_fused = (engine_cfg.step_mode == "fused"
+                          and self.use_paged and self.use_paged_prefill
+                          and T.supports_fused_step(cfg))
         # autotuned per-step prefill chunk, pow2 in [1, prefill_chunk]
         self._chunk_now = _bucket(engine_cfg.prefill_chunk)
 
@@ -280,20 +296,15 @@ class InferenceEngine:
         if ecfg.step_mode not in ("fused", "split"):
             raise ValueError(f"step_mode={ecfg.step_mode!r}: 'fused' or "
                              f"'split'")
-        for name in ("decode_mode", "prefill_mode"):
-            if getattr(ecfg, name) != "paged":
-                raise NotImplementedError(
-                    f"{name}={getattr(ecfg, name)!r}: the dense oracle "
-                    f"modes are ROADMAP Queue A item 7")
         if ecfg.trace_modules:
             raise NotImplementedError(
                 "trace_modules=True: the per-module probe is ROADMAP "
                 "Queue A item 8 (telemetry on the port)")
         if not T.supports_fused_step(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the paged paths support pure-GQA, "
-                f"full-attention, token-frontend configs; this one needs "
-                f"the dense paths (ROADMAP Queue A items 7 and 10)")
+                f"{cfg.name}: the port serves pure-GQA, full-attention, "
+                f"token-frontend configs; this one needs another model "
+                f"family (ROADMAP Queue A item 10)")
         if cfg.n_experts:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are ROADMAP Queue A item 2 "
@@ -438,6 +449,39 @@ class InferenceEngine:
                 g += 1
         return g == self.cfg.n_kv_heads
 
+    # ---------------------------------------------------------------- prefill
+    def _prefill(self, req: Request) -> None:
+        """Serial dense prefill of one request (``prefill_mode="dense"``).
+        A PREEMPTED request resumes with prompt + generated tokens as the
+        prefill input (teacher forcing: the same K/V and next-token logits
+        as the decode steps it replays, so resumption stays exact)."""
+        toks = np.asarray(req.prompt + req.output, np.int32)[None]
+        ctx = int(toks.shape[1])
+        (tokens,) = self._upload((toks,))
+        with self.tracer.span("prefill", args={"rid": req.rid, "ctx": ctx}):
+            logits, cache = self._prefill_fn(self.params, {"tokens": tokens})
+            self.tracer.sync(logits)
+        self._c_model_calls.inc()
+        self._c_h2d.inc(toks.nbytes)
+        self._c_pre_h2d.inc(toks.nbytes)
+        # bulk-store the prompt K/V of all head groups: device scatters,
+        # no host round-trip of the cache contents
+        kv = cache["groups"][0]
+        self.kv.store_prompt_request(req.rid, kv["k"][:, 0, :ctx],
+                                     kv["v"][:, 0, :ctx])
+        req.prefill_pos = ctx
+        first = int(logits[0].argmax())
+        self._c_d2h.inc(logits.numel() * logits.element_size())
+        req.output.append(first)
+        # one token appended to every group's cache next decode step
+        req.state = RequestState.RUNNING
+        if req.ttft is None:
+            req.ttft = self.clock - req.arrival
+            self._h_ttft.observe(req.ttft)
+        self.running.append(req)
+        if req.done:        # max_new_tokens == 1, or resume filled the last
+            self._finish(req)
+
     # ----------------------------------------------------------------- decode
     def _reserve_decode_rows(self, reqs: List[Request]) -> List[Request]:
         """Reserve page room for this step's token in every group chain;
@@ -543,11 +587,17 @@ class InferenceEngine:
                 self._finish(r)
 
     def _decode_batch(self) -> None:
-        """ONE paged decode call for every running request: block tables
-        over the pools, the new token's K/V written in place."""
         reqs = [r for r in self.running if not r.done]
         if not reqs:
             return
+        if self.use_paged:
+            self._decode_batch_paged(reqs)
+        else:
+            self._decode_batch_dense(reqs)
+
+    def _decode_batch_paged(self, reqs: List[Request]) -> None:
+        """ONE paged decode call for every running request: block tables
+        over the pools, the new token's K/V written in place."""
         cfg = self.cfg
         Hkv, page = cfg.n_kv_heads, self.kv.page
         active = self._reserve_decode_rows(reqs)
@@ -598,6 +648,65 @@ class InferenceEngine:
             # scattered the token K/V into those pages on device
             grow_context(self.workers, self.attn_reqs[r.rid], 1)
         for i, r in enumerate(active):
+            r.output.append(int(nxt[i]))
+            if r.done:
+                self._finish(r)
+
+    def _decode_batch_dense(self, reqs: List[Request]) -> None:
+        """Reference path: gather the pages into dense fp32 host caches,
+        upload, decode, download the written K/V and re-page it."""
+        cfg = self.cfg
+        B = len(reqs)
+        max_len = max(r.ctx_len + 1 for r in reqs)
+        max_len = min(max_len, self.ecfg.max_seq)
+        L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        K = np.zeros((L, B, max_len, Hkv, dh), np.float32)
+        V = np.zeros_like(K)
+        pos = np.zeros((B,), np.int32)
+        toks = np.zeros((B, 1), np.int32)
+        for i, r in enumerate(reqs):
+            k, v = self.kv.gather_dense(r.rid, max_len)
+            K[:, i] = k
+            V[:, i] = v
+            pos[i] = r.ctx_len - 1          # position of the not-yet-stored
+            toks[i, 0] = r.output[-1]       # last generated token
+        Kd, Vd, posd, toksd = self._upload((K, V, pos, toks))
+        cache = {"groups": [{"k": Kd, "v": Vd}], "pos": posd}
+        self._c_h2d.inc(K.nbytes + V.nbytes + pos.nbytes + toks.nbytes)
+        with self.tracer.span("dense_decode", args={"batch": B}):
+            logits, new_cache = self._decode_fn(self.params, cache, toksd)
+            self.tracer.sync(logits)
+        self._c_model_calls.inc()
+        nk = new_cache["groups"][0]["k"].cpu().numpy()
+        nv = new_cache["groups"][0]["v"].cpu().numpy()
+        self._c_d2h.inc(nk.nbytes + nv.nbytes
+                        + logits.numel() * logits.element_size())
+        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        for i, r in enumerate(reqs):
+            # exhaustion handling for an earlier row (or this one) may have
+            # preempted this request: its pages are released and it replays
+            # prompt + output, which recomputes this step's token exactly.
+            # (The reference stores its K/V into fresh chains and appends
+            # the token anyway, and raises in _finish when that token ends
+            # the request: ROADMAP Queue C.)
+            if r not in self.running:
+                continue
+            p = int(pos[i])
+            ar = self.attn_reqs[r.rid]
+            # store the token K/V written by decode into pages + grow
+            for grp, dev in self._group_devices(r):
+                ok = self.kv.append_token(
+                    r.rid, grp, dev, (nk[:, i, p, grp], nv[:, i, p, grp]))
+                if not ok:
+                    self._on_memory_exhausted(dev)
+                    if r not in self.running:
+                        break
+                    self.kv.append_token(
+                        r.rid, grp, dev,
+                        (nk[:, i, p, grp], nv[:, i, p, grp]))
+            if r not in self.running:
+                continue
+            grow_context(self.workers, ar, 1)
             r.output.append(int(nxt[i]))
             if r.done:
                 self._finish(r)
@@ -843,16 +952,21 @@ class InferenceEngine:
                 admitted = self._try_admit()
             for req in admitted:
                 req.prefill_start = self.clock
-                # chunked: prompt writes spread over the next steps,
-                # interleaved with decode — no head-of-line blocking
-                self.prefilling.append(req)
+                if self.use_paged_prefill:
+                    # chunked: prompt writes spread over the next steps,
+                    # interleaved with decode — no head-of-line blocking
+                    self.prefilling.append(req)
+                else:
+                    self.clock += self._model_prefill_time(len(req.prompt))
+                    self._prefill(req)
             if self.use_fused:
                 # ONE model call packs decode rows + prefill chunks
                 self._fused_step()
             else:
                 # a prefill-chunk call, then a decode call in which the
                 # requests that just finished their prompts already decode
-                self._prefill_chunk_step()
+                if self.use_paged_prefill:
+                    self._prefill_chunk_step()
                 self._decode_batch()
             # Θ-triggered rebalance (at most one request per step, §5.3)
             d = maybe_rebalance(self.workers, list(self.attn_reqs.values()),

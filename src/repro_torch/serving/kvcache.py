@@ -171,6 +171,95 @@ class PagedHeadCache:
         self.lengths[key] = max(self.lengths.get(key, 0), n_tokens)
         return True
 
+    def append_token(self, rid: int, group: int, device_id: int,
+                     layer_kv: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                     ) -> bool:
+        """Reserve room for one more token (and optionally store its K/V
+        (L, dh) vectors)."""
+        key = (rid, group)
+        n = self.lengths.get(key, 0)
+        if not self.ensure_capacity(rid, group, device_id, n + 1):
+            return False
+        if layer_kv is not None:
+            self.store_token(rid, group, n, layer_kv[0], layer_kv[1])
+        self.lengths[key] = n + 1
+        return True
+
+    def store_token(self, rid: int, group: int, pos: int, k, v) -> None:
+        """k, v: (L, dh) (host arrays or tensors) for this group at
+        position ``pos``, stored in the pool dtype."""
+        dev, slot = self.tables[(rid, group)][pos // self.page]
+        off = pos % self.page
+        self.kpools[dev][:, slot, off] = torch.as_tensor(k).to(
+            device=self.device, dtype=self.dtype)
+        self.vpools[dev][:, slot, off] = torch.as_tensor(v).to(
+            device=self.device, dtype=self.dtype)
+
+    def store_prompt(self, rid: int, group: int, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        """k, v: (L, ctx, dh) — bulk store after prefill; one scatter per
+        device the chain touches (a single-device chain stays ONE
+        scatter)."""
+        ctx = k.shape[1]
+        devs, slots, offs = self._scatter_indices(rid, group, ctx)
+        k = torch.as_tensor(k).to(device=self.device, dtype=self.dtype)
+        v = torch.as_tensor(v).to(device=self.device, dtype=self.dtype)
+        for dev, sl, of, t in self._device_lanes(devs, slots, offs):
+            self.kpools[dev][:, sl, of] = k[:, t]
+            self.vpools[dev][:, sl, of] = v[:, t]
+
+    def store_prompt_request(self, rid: int, k: torch.Tensor,
+                             v: torch.Tensor) -> None:
+        """Bulk store a whole request's prompt K/V for ALL head groups.
+        k, v: (L, ctx, Hkv, dh) — the layout ``transformer.prefill``
+        emits, on the device (no host round-trip)."""
+        for g in range(self.cfg.n_kv_heads):
+            self.store_prompt(rid, g, k[:, :, g], v[:, :, g])
+
+    def _scatter_indices(self, rid: int, group: int, ctx: int
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(device, local slot, page offset) per token position for one
+        group chain."""
+        chain = self.tables[(rid, group)]
+        t = np.arange(ctx)
+        chain_devs = np.asarray([d for d, _ in chain], np.int32)
+        chain_slots = np.asarray([s for _, s in chain], np.int32)
+        page_idx = t // self.page
+        return (chain_devs[page_idx], chain_slots[page_idx],
+                (t % self.page).astype(np.int32))
+
+    def _device_lanes(self, devs: np.ndarray, slots: np.ndarray,
+                      offs: np.ndarray):
+        """Per device of a chain's ``_scatter_indices``: (device, local
+        slots, page offsets, token positions), the last three as index
+        tensors on the pools' device."""
+        for dev in np.unique(devs):
+            m = devs == dev
+            yield (int(dev),) + tuple(
+                torch.from_numpy(a).to(self.device).long()
+                for a in (slots[m], offs[m], np.flatnonzero(m)))
+
+    def gather_dense(self, rid: int, max_len: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Reassemble (L, max_len, Hkv, dh) dense K/V from pages as fp32
+        host arrays — the host-side reference path the paged fast path
+        replaces.  The pages are gathered and widened to fp32 on the device
+        (numpy has no bf16), then copied to the host."""
+        cfg = self.cfg
+        L, dh = cfg.n_layers, cfg.head_dim
+        K = torch.zeros((L, max_len, cfg.n_kv_heads, dh), dtype=self.dtype,
+                        device=self.device)
+        V = torch.zeros_like(K)
+        for g in range(cfg.n_kv_heads):
+            n = min(self.lengths.get((rid, g), 0), max_len)
+            if n <= 0:
+                continue
+            devs, slots, offs = self._scatter_indices(rid, g, n)
+            for dev, sl, of, t in self._device_lanes(devs, slots, offs):
+                K[:, t, g] = self.kpools[dev][:, sl, of]
+                V[:, t, g] = self.vpools[dev][:, sl, of]
+        return K.float().cpu().numpy(), V.float().cpu().numpy()
+
     # -- release / migration --------------------------------------------------------
     def release(self, rid: int) -> int:
         """Free all pages of a request; returns slots released."""

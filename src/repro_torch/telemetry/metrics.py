@@ -187,9 +187,21 @@ class MetricsView(Mapping):
         return repr({k: self[k] for k in self._readers})
 
 
+def _shape_key(x):
+    """The shapes of every array leaf of nested dicts, lists and tuples,
+    with the nesting (jit's cache key, less the dtypes)."""
+    if isinstance(x, dict):
+        return tuple((k, _shape_key(x[k])) for k in sorted(x, key=repr))
+    if isinstance(x, (list, tuple)):
+        return tuple(_shape_key(v) for v in x)
+    return tuple(x.shape) if hasattr(x, "shape") else None
+
+
 class ShapeCountingFn:
     """Wraps a model callable; bumps ``counter`` the first time it is
-    called with a new combination of tensor argument shapes.
+    called with a new combination of argument shapes — those of every
+    tensor leaf, nested dicts, lists and tuples included, as jit keys its
+    cache on every leaf of the argument pytrees.
 
     Eager PyTorch compiles nothing per shape, so the counterpart of the
     reference's jit-recompile counter is the number of distinct bucket
@@ -204,7 +216,7 @@ class ShapeCountingFn:
         self.shapes: set = set()
 
     def __call__(self, *args, **kwargs):
-        key = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+        key = _shape_key((args, kwargs))
         if key not in self.shapes:
             self.shapes.add(key)
             self.counter.inc()

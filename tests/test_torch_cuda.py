@@ -6,6 +6,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
@@ -192,3 +194,74 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.paged_attention(q, k.to(torch.bfloat16), v, tables, lengths)
     with pytest.raises(ValueError, match="at most"):
         ops.paged_attention(q.expand(-1, -1, 17, -1), k, v, tables, lengths)
+
+
+# dense flash attention: (B, Hq, Hkv, Sq, Sk, dh, causal, window) — the
+# reference's kernel test cases at the head dims the kernel takes, S not a
+# multiple of the 64-query / 32-key tiles, qwen3-14b's r = 5 at dh 128,
+# and keys shorter than the queries so windowed rows see no key
+FLASH_SHAPES = [
+    (1, 4, 4, 128, 128, 64, True, 0),        # MHA
+    (2, 8, 2, 256, 256, 64, True, 0),        # GQA r = 4
+    (1, 4, 1, 128, 128, 128, True, 0),       # MQA
+    (2, 4, 2, 192, 192, 96, True, 0),        # dh 96
+    (1, 10, 2, 100, 100, 128, True, 0),      # r = 5, S = 100
+    (1, 2, 2, 100, 100, 64, False, 0),       # non-causal, S = 100
+    (1, 4, 2, 128, 128, 64, True, 16),       # sliding windows
+    (1, 4, 2, 200, 200, 96, True, 48),
+    (1, 4, 2, 128, 128, 128, False, 96),
+    (1, 4, 2, 130, 70, 64, True, 16),        # rows past kv + window: 0
+]
+
+
+def make_flash(dev, dtype, B, Hq, Hkv, Sq, Sk, dh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    return rnd(B, Hq, Sq, dh), rnd(B, Hkv, Sk, dh), rnd(B, Hkv, Sk, dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", range(len(FLASH_SHAPES)))
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    B, Hq, Hkv, Sq, Sk, dh, causal, window = FLASH_SHAPES[shape]
+    q, k, v = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, dh)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+        err.max().item()
+    blind = (ref == 0).all(-1)               # rows that see no key
+    assert torch.all(got[blind] == 0)
+    if Sq > Sk + window > window > 0:
+        assert blind.any()
+
+
+def test_flash_kernel_bshd_views_and_strides(cuda):
+    """The model's (B, S, H, dh) layout and a K/V that are strided views
+    of one fused projection give what contiguous BHSD copies give."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 2, 10, 2, 150, 150, 128)
+    qs = q.transpose(1, 2).contiguous()
+    kv = torch.cat([k.transpose(1, 2), v.transpose(1, 2)], dim=2)
+    got = fa_ops.flash_attention(qs, kv[:, :, :2], kv[:, :, 2:],
+                                 causal=True, layout="BSHD")
+    want = fa_ops.flash_attention(q, k.contiguous(), v.contiguous(),
+                                  causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == qs.shape
+    assert torch.equal(got.transpose(1, 2), want)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = make_flash(cuda, torch.float32, 1, 4, 2, 64, 64, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, k, v)
+    q, k, v = make_flash(cuda, torch.float32, 1, 4, 2, 64, 64, 64)
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q, k.transpose(2, 3), v)

@@ -65,10 +65,35 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback():
         serve.main(["--smoke", "--requests", "1"])
 
 
+@pytest.mark.parametrize("ecfg", [
+    dict(step_mode="split", decode_mode="dense"),
+    dict(decode_mode="dense"),
+    dict(prefill_mode="dense"),
+])
+def test_dense_modes_build_with_the_reference_schedule(ecfg):
+    """The dense oracle modes are ported: the engine builds, and a dense
+    mode turns the fused step off (split schedule) as in the reference."""
+    import jax
+    from repro.core.cluster import ClusterSpec as JCluster
+    from repro.models import transformer as JT
+    from repro.serving import EngineConfig as JEngineConfig
+    from repro.serving import InferenceEngine as JEngine
+    cfg = smoke_config("qwen3-14b")
+    jcfg = jget_config("qwen3-14b").reduced()
+    eng = InferenceEngine(cfg, init_params(cfg, 0, device="cpu"),
+                          ClusterSpec.build([("A100", 1), ("3090", 1)]),
+                          primary_ids=[0], pool_ids=[1],
+                          engine_cfg=EngineConfig(**ecfg), device="cpu")
+    jeng = JEngine(jcfg, JT.init_params(jcfg, jax.random.PRNGKey(0)),
+                   JCluster.build([("A100", 1), ("3090", 1)]),
+                   primary_ids=[0], pool_ids=[1],
+                   engine_cfg=JEngineConfig(**ecfg))
+    flags = (eng.use_paged, eng.use_paged_prefill, eng.use_fused)
+    assert flags == (jeng.use_paged, jeng.use_paged_prefill, jeng.use_fused)
+    assert not eng.use_fused
+
+
 @pytest.mark.parametrize("ecfg, item", [
-    (dict(step_mode="split", decode_mode="dense"), "item 7"),
-    (dict(decode_mode="dense"), "item 7"),
-    (dict(prefill_mode="dense"), "item 7"),
     (dict(trace_modules=True, telemetry=True), "item 8"),
 ])
 def test_unported_engine_modes_raise(ecfg, item):
@@ -139,6 +164,27 @@ def test_shape_counter_counts_distinct_bucket_shapes():
         fn({"params": 0}, torch.zeros(shape), np.zeros(3))
     assert fn._cache_size() == 3
     assert reg.snapshot()["jit/recompiles"] == 3.0
+
+
+def test_shape_counter_keys_nested_tensor_leaves():
+    """The dense calls pass dicts (``_prefill_fn(params, {"tokens": t})``,
+    ``_decode_fn(params, cache, toks)``): a new leaf shape anywhere in
+    them is a new shape, as for jit; the same shapes are not."""
+    reg = MetricsRegistry()
+    fn = count_recompiles(lambda *a: None, reg.counter("jit/recompiles"))
+    params = {"groups": [{"w": torch.zeros(2, 3)}], "embed": torch.zeros(5)}
+    for n in (7, 7, 9, 7):
+        fn(params, {"tokens": torch.zeros(1, n, dtype=torch.int32)})
+    assert fn._cache_size() == 2
+    cache = lambda S: {"groups": [{"k": torch.zeros(2, 1, S), "v":
+                                   torch.zeros(2, 1, S)}],
+                       "pos": torch.zeros(1)}
+    for S in (4, 4, 8):
+        fn(params, cache(S), torch.zeros(1, 1))
+    assert fn._cache_size() == 4
+    fn(params, [cache(8)], torch.zeros(1, 1))         # another nesting
+    assert fn._cache_size() == 5
+    assert reg.snapshot()["jit/recompiles"] == 5.0
 
 
 def test_tracer_sync_on_cpu_tensors():
