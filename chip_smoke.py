@@ -13,7 +13,8 @@ Phases, in order; any failure exits nonzero:
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
               shapes of qwen3-14b (Hkv 8, r 5, dh 128, page 16; decode-only,
-              prefill-only and mixed row batches in bf16, one fp32 batch);
+              prefill-only and mixed row batches in bf16, one fp32 batch,
+              16 decode rows at 2048 keys) and the mixed batch at MHA dh 96;
               B2 (decode) on 16 decode rows with ragged contexts < 2048 at
               qwen3-14b's shapes in bf16 and fp32, an MHA r = 1 batch at dh
               64 and one at dh 96, a batch with padded rows (lengths 0) and
@@ -118,6 +119,19 @@ def time_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """Mean host ms of one call of ``fn`` (its Python work and launches);
+    nothing synchronises inside the loop, so the card runs behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def roofline(nbytes, flops, dname):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the peak rate of the input type."""
@@ -155,6 +169,16 @@ def ragged_contexts():
 
 
 # ----------------------------------------------------------- B1 (prefill)
+def b1_smem_bytes(size, dh, warps):
+    """B1's dynamic shared memory per block, from the tile sizes of
+    csrc/paged_prefill_attention.cu (``Layout``): a Q tile of 16 rows per
+    warp and two stages of K and V tiles (32 keys in fp32 and in one-warp
+    split tiles, else 64), rows padded by 16 B, and in fp32 a P tile."""
+    keys = 32 if warps == 1 or size == 4 else 64
+    nbytes = (16 * warps + 2 * 2 * keys) * (dh + 16 // size) * size
+    return nbytes + (warps * 16 * (keys + 4) * 4 if size == 4 else 0)
+
+
 def make_rows(dev, dtype, rows, C, Hkv=8, r=5, dh=128, page=16,
               max_pages=128, seed=0):
     """Kernel inputs for ``rows`` of (start, n): n == 1 is a decode row,
@@ -240,11 +264,17 @@ def prefill_kernel_phase(dev, flush):
         "mixed_fp32": (torch.float32, 64,
                        [(c - 1, 1) for c in ragged] + [(512, 64), (0, 16)]
                        + [(0, 0)] * 14),
+        # 16 decode rows at the engine's longest context (2048 keys)
+        "decode_2048": (torch.bfloat16, 1, [(2047, 1)] * 16),
+        # the mixed batch at phi3-mini's MHA widths (32 kv heads, dh 96)
+        "mha_dh96": (torch.bfloat16, 64,
+                     [(c - 1, 1) for c in ragged] + [(512, 64), (0, 16)]
+                     + [(0, 0)] * 14, dict(Hkv=32, r=1, dh=96)),
     }
     results = {}
-    for name, (dtype, C, rows) in cases.items():
+    for name, (dtype, C, rows, *widths) in cases.items():
         dname = dtype_name(dtype)
-        args = make_rows(dev, dtype, rows, C)
+        args = make_rows(dev, dtype, rows, C, **(widths[0] if widths else {}))
         got = ops.paged_prefill_attention(*args)
         torch.cuda.synchronize()
         ref = paged_prefill_attention_ref(*args)
@@ -255,6 +285,15 @@ def prefill_kernel_phase(dev, flush):
         lib = sdpa_ms(args, flush)
         results[name] = report("B1", name, list(args[0].shape), dname,
                                max_err, ms, plain, lib, *bound(args, dname))
+        # the wrapper's host time with q in the model's layout (the
+        # transposed view gqa_prefill_paged passes)
+        qv = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        host = host_ms(lambda: ops.paged_prefill_attention(qv, *args[1:]),
+                       20)
+        results[name]["host_ms"] = host
+        log(f"B1 {name}: wrapper host_ms {host:.4f} per call (q as the "
+            f"model's transposed view)")
+        del qv
         del args, got, ref
         torch.cuda.empty_cache()
     return results
@@ -1091,7 +1130,7 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
     assert events, "the profiler recorded no device activity"
     dev_us = sum(us for _, us in events)
     n_ops = sum(e.count for e in avg if e.self_device_time_total > 0)
-    b1_us = sum(us for k, us in events if "paged_prefill_kernel" in k)
+    b1_us = sum(us for k, us in events if "paged_prefill_" in k)
     b2_us = sum(us for k, us in events if "paged_decode_" in k)
     b3_us = sum(us for k, us in events if "flash_kernel" in k)
     log(f"profile ({mode}): steps {win_step0 + 1}-{steps} ({n_win} steps), "
@@ -1179,8 +1218,13 @@ def main(argv=None) -> int:
         f"and loaded in {time.perf_counter() - t0:.1f} s")
     for name, _ in sources:
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    name == NAMES["B1"] and "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
+    log(f"build: {NAMES['B1']}: dynamic shared memory per block " + ", ".join(
+        f"{dt} dh {dh} {w} warp(s) {b1_smem_bytes(size, dh, w)} B"
+        for dt, size in (("fp32", 4), ("bf16", 2)) for dh in ops.HEAD_DIMS
+        for w in (1, 4)))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     b1 = prefill_kernel_phase(dev, flush)

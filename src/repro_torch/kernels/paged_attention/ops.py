@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -34,6 +35,13 @@ HEAD_DIMS = (64, 96, 128)
 MAX_GROUP = 16                 # query rows per kv head the decode kernel takes
 # keys per span of the decode kernel's context split (rounded to pages)
 SPLIT_KEYS = 128
+# the chunked-prefill kernel's split plan: a (row, kv head) with at most
+# SPLIT_ROWS folded query rows is one one-warp tile of the kernel
+# (csrc/paged_prefill_attention.cu) whose keys are split into spans of
+# whole key tiles
+SPLIT_ROWS = 16
+SPAN_ALIGN = 64                # a multiple of every key tile of the kernel
+SPLIT_BLOCKS = 1024            # blocks the split plan aims to put on the card
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches so far, per wrapper (a run resets them to 0 and reads
@@ -44,16 +52,18 @@ LAUNCHES = {"paged_attention": 0, "paged_prefill_attention": 0}
 # C signatures: tensor pointers, int sizes, then scale, dtype and stream
 _ARGTYPES = {
     "paged_attention": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8,
-    "paged_prefill_attention": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7,
+    "paged_prefill_attention": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2,
 }
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name, dict(SOURCES)[name])
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name] + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = getattr(lib, name)                # the same object on every call
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -143,6 +153,31 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
     return out
 
 
+def split_plan(B: int, Hkv: int, C: int, r: int, max_pages: int,
+               page: int) -> Tuple[int, int]:
+    """(n_splits, span) of the chunked-prefill kernel's key axis, from
+    shapes alone (no device-to-host read).  Only where a (row, kv head)
+    has a single query tile of at most ``SPLIT_ROWS`` folded rows (decode
+    rows: C * r == r) are its keys cut into ``n_splits`` spans of ``span``
+    keys, a multiple of ``SPAN_ALIGN``, so that about ``SPLIT_BLOCKS``
+    blocks fill the card; the spans cover the table's max_pages * page
+    keys once.  Elsewhere one span covers the table."""
+    S = max_pages * page
+    tiles = max(1, -(-S // SPAN_ALIGN))
+    if C * r > SPLIT_ROWS or B * Hkv == 0:
+        return 1, tiles * SPAN_ALIGN
+    n = min(tiles, -(-SPLIT_BLOCKS // (B * Hkv)))
+    span = -(-tiles // n) * SPAN_ALIGN
+    return max(1, -(-S // span)), span
+
+
+def split_scratch_floats(B: int, Hkv: int, C: int, r: int, dh: int,
+                         n_splits: int) -> int:
+    """fp32 scratch of a split launch: (m, l, acc) partials, (dh + 2)
+    floats per (row, kv head, span, folded query row); none unsplit."""
+    return 0 if n_splits == 1 else B * Hkv * n_splits * C * r * (dh + 2)
+
+
 def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
                             vpool: torch.Tensor, block_tables: torch.Tensor,
                             lengths: torch.Tensor, starts: torch.Tensor
@@ -150,15 +185,20 @@ def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
     """Causal chunk attention over the head-granular paged pool (prefill).
 
     q:            (B, Hkv, C, r, dh) — one C-token prompt chunk per sequence,
-                  queries grouped per kv head; the chunk's OWN K/V must
-                  already be scattered into the pools
+                  queries grouped per kv head, any strides with the last dim
+                  contiguous; the chunk's OWN K/V must already be scattered
+                  into the pools
     kpool/vpool:  (num_slots, page_size, dh) — one layer of the pools, a
                   view into the (L, slots, page, dh) pool (no copy)
     block_tables: (B, Hkv, max_pages) int — entries past the written length
                   may be arbitrary ids; they are clipped into range
     lengths:      (B,) int keys visible after the chunk's writes (0 pads)
     starts:       (B,) int absolute position of each chunk's first token
-    returns       (B, Hkv, C, r, dh)
+    returns       (B, Hkv, C, r, dh); on CUDA the transposed view of a
+                  contiguous (B, C, Hkv, r, dh) tensor
+
+    On CUDA tensors bf16 runs both products on the tensor cores and fp32
+    on the CUDA cores (never TF32), chosen by dtype alone.
     """
     if q.ndim != 5 or kpool.ndim != 3 or block_tables.ndim != 3:
         raise ValueError(f"bad ranks: q {tuple(q.shape)}, kpool "
@@ -166,26 +206,45 @@ def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
                          f"{tuple(block_tables.shape)}")
     B, Hkv, C, r, dh = q.shape
     slots, page, _ = kpool.shape
-    block_tables = block_tables.clamp(0, slots - 1)
     if not q.is_cuda:
-        return paged_prefill_attention_ref(q, kpool, vpool, block_tables,
+        return paged_prefill_attention_ref(q, kpool, vpool,
+                                           block_tables.clamp(0, slots - 1),
                                            lengths, starts)
-    M = C * r
-    qf = q.reshape(B, Hkv, M, dh).contiguous()
-    _check(qf, kpool, vpool, block_tables, lengths, starts)
+    _check(q, kpool, vpool, block_tables, lengths, starts)
+    # q is read through its strides (the model's transposed view is not
+    # copied); a size-1 dim's stride is never used
+    strides = [0 if n == 1 else st for n, st in zip(q.shape, q.stride())]
+    if strides[4] not in (0, 1) or any(st * q.element_size() % 16
+                                       for st in strides[:4]):
+        raise ValueError(f"q strides {tuple(q.stride())}: the last dim must "
+                         f"be contiguous and the others 16-byte multiples")
     fn = _library("paged_prefill_attention").paged_prefill_attention
+    max_pages = block_tables.shape[-1]
+    n_splits, span = split_plan(B, Hkv, C, r, max_pages, page)
+    # table entries are clamped into the pool inside the kernel
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     sts = starts.to(torch.int32).contiguous()
-    out = torch.empty((B, Hkv, M, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, C, Hkv, r, dh), dtype=q.dtype, device=q.device)
+    parts = [None] * 3                     # acc, m, l partials of a split
+    n_scratch = split_scratch_floats(B, Hkv, C, r, dh, n_splits)
+    if n_scratch:
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=q.device)
+        rows = n_scratch // (dh + 2)
+        base = scratch.data_ptr()
+        parts = [base, base + rows * dh * 4, base + rows * (dh + 1) * 4]
     with torch.cuda.device(q.device):
-        err = fn(qf.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), sts.data_ptr(),
-                 out.data_ptr(), B, Hkv, M, r, dh, page, tables.shape[-1],
+                 out.data_ptr(), parts[1], parts[2], parts[0], B, Hkv, C, r,
+                 dh, page, max_pages, slots, *strides[:4], n_splits, span,
                  1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill_attention launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["paged_prefill_attention"] += 1
-    return out.reshape(B, Hkv, C, r, dh)
+    # (B, Hkv, C, r, dh) view: the caller's transpose back to
+    # (B, C, H * dh) is then free
+    return out.transpose(1, 2)

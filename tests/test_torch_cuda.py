@@ -34,7 +34,9 @@ def make(dev, dtype, B, Hkv, C, r, dh, page, maxp, starts, nvalid, seed=0):
     tables = torch.randperm(slots, generator=g, device=dev)[:B * Hkv * maxp]
     starts = torch.tensor(starts, dtype=torch.int32, device=dev)
     nvalid = torch.tensor(nvalid, dtype=torch.int32, device=dev)
-    lengths = torch.where(nvalid > 0, starts + nvalid, 0).to(torch.int32)
+    # nvalid 0 pads a row (lengths 0); a negative one puts lengths below
+    # starts
+    lengths = torch.where(nvalid != 0, starts + nvalid, 0).to(torch.int32)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
     return (rnd(B, Hkv, C, r, dh), rnd(slots, page, dh), rnd(slots, page, dh),
             tables.reshape(B, Hkv, maxp).to(torch.int32), lengths, starts)
@@ -72,6 +74,69 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     padded = (lengths == 0).nonzero().flatten().tolist()
     for b in padded:
         assert torch.all(got[b] == 0)
+
+
+# the edges of the tensor-core design: a 2048-key decode context that is
+# split into spans, the same context as a 1-token row of a 64-token mixed
+# bucket, M = C * r not a multiple of 16 (one split tile of 15 rows, and 65
+# rows), MHA at dh 96, page 8 with 64-key tiles crossing pages, and rows
+# whose chunk starts at or past their length
+EDGE_SHAPES = {
+    "decode_2048_split": dict(B=3, Hkv=8, C=1, r=5, dh=128, page=16,
+                              maxp=128, starts=[2047, 1000, 63],
+                              nvalid=[1, 1, 1]),
+    "mixed_2048": dict(B=4, Hkv=8, C=64, r=5, dh=128, page=16, maxp=128,
+                       starts=[2047, 0, 1500, 0], nvalid=[1, 64, 30, 0]),
+    "r5_c3_split": dict(B=3, Hkv=2, C=3, r=5, dh=128, page=16, maxp=24,
+                        starts=[126, 0, 300], nvalid=[3, 2, 3]),
+    "r5_c13": dict(B=2, Hkv=2, C=13, r=5, dh=128, page=16, maxp=16,
+                   starts=[0, 190], nvalid=[13, 13]),
+    "mha_dh96_c64": dict(B=2, Hkv=4, C=64, r=1, dh=96, page=16, maxp=16,
+                         starts=[0, 130], nvalid=[64, 50]),
+    "page8_crossing": dict(B=2, Hkv=2, C=16, r=4, dh=64, page=8, maxp=40,
+                           starts=[290, 5], nvalid=[16, 11]),
+    "starts_past_lengths": dict(B=3, Hkv=2, C=8, r=5, dh=64, page=16,
+                                maxp=8, starts=[50, 100, 20],
+                                nvalid=[-30, -1, 8]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_kernel_design_edges_match_plain(cuda, name, dtype):
+    shape = EDGE_SHAPES[name]
+    args = make(cuda, dtype, **shape)
+    q, k, v, tables, lengths, starts = args
+    n_splits, _ = ops.split_plan(shape["B"], shape["Hkv"], shape["C"],
+                                 shape["r"], shape["maxp"], shape["page"])
+    assert (n_splits > 1) == name.endswith("_split")
+    got = ops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_prefill_attention_ref(*args)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+        err.max().item()
+    for b in (lengths == 0).nonzero().flatten().tolist():
+        assert torch.all(got[b] == 0)
+
+
+def test_kernel_reads_q_by_its_strides(cuda):
+    """The transposed view the model passes ((B, C, Hkv, r, dh) memory)
+    gives exactly what a contiguous q gives, and the result is laid out
+    so that transposing it back to (B, C, Hkv, r, dh) is contiguous."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in (EDGE_SHAPES["mixed_2048"], EDGE_SHAPES["r5_c3_split"]):
+            q, k, v, tables, lengths, starts = make(cuda, dtype, **shape)
+            qv = q.transpose(1, 2).contiguous().transpose(1, 2)
+            assert not qv.is_contiguous()
+            got = ops.paged_prefill_attention(qv, k, v, tables, lengths,
+                                              starts)
+            want = ops.paged_prefill_attention(q, k, v, tables, lengths,
+                                               starts)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert got.shape == q.shape
+            assert got.transpose(1, 2).is_contiguous()
 
 
 def test_kernel_reads_a_layer_view_in_place(cuda):
