@@ -20,9 +20,14 @@ Phases, in order; any failure exits nonzero:
               64 and one at dh 96, a batch with padded rows (lengths 0) and
               one with out-of-range table entries.  B3 (dense flash
               attention) at qwen3-14b's full prefill (40 over 8 heads, dh
-              128, S 1024, causal) in bf16 and fp32, a sliding-window case, a
-              non-causal case with S not a tile multiple, and MHA cases at dh
-              64 and 96, beside F.scaled_dot_product_attention.
+              128, S 1024, causal) in bf16 and fp32, at the engine's
+              shortest prompt (S 128), a sliding-window case, a non-causal
+              case with S not a tile multiple, and MHA cases at dh 64 and
+              96, beside F.scaled_dot_product_attention.  Every case also
+              reads the wrapper's host time per call; with --profile the
+              kernel table's cases (B1 mixed and decode-only, B2 decode, B3
+              prefill) and B3 at S 128 also read kernel and SDPA time from
+              the profiler's device trace, which holds no host time.
   4. small:   a reduced fp32 engine on the GPU (kernels) against the same
               engine on the CPU (plain attention), under the fused step, the
               split schedule and the three dense mode combinations: identical
@@ -119,6 +124,32 @@ def time_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def device_ms(fn, iters: int, flush) -> float:
+    """Mean device ms per call of the kernels ``fn`` launches, read from
+    the profiler's device trace over ``iters`` calls, each after the same
+    L2 flush as in ``time_ms`` (the flush's own kernels left out).  Unlike
+    ``time_ms`` it holds none of the wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(body):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                body()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+    fn()
+    torch.cuda.synchronize()
+    flush_keys = set(trace(flush.zero_))
+
+    def body():
+        flush.zero_()
+        fn()
+    us = trace(body)
+    assert set(us) - flush_keys, "the profiler recorded no kernel of fn"
+    return sum(t for k, t in us.items() if k not in flush_keys) / iters / 1e3
+
+
 def host_ms(fn, iters: int) -> float:
     """Mean host ms of one call of ``fn`` (its Python work and launches);
     nothing synchronises inside the loop, so the card runs behind."""
@@ -163,17 +194,34 @@ def report(kernel, name, shape, dname, max_err, ms, plain, lib, b_ms, b_by,
                 shape=shape, dtype=dname)
 
 
+# the cases whose kernel and SDPA times are also read from the device
+# trace (``device_ms``) under --profile: the kernel table's rows and B3 at
+# S = 128.  Only then: once the profiler has run in a process, every later
+# launch costs more host time (a plain run's tokens/s fell 10-20 % in
+# PERF.md's runs), so a plain run keeps its end-to-end numbers clean.
+DEVICE_TIMED = {"B1": ("mixed", "decode"), "B2": ("decode",),
+                "B3": ("prefill", "prefill_128")}
+
+
+def log_device_ms(kernel, name, result, fn, sdpa, flush):
+    result["device_ms"] = device_ms(fn, 20, flush)
+    result["library_device_ms"] = device_ms(sdpa, 10, flush)
+    log(f"{kernel} {name}: device_ms {result['device_ms']:.4f} (SDPA "
+        f"{result['library_device_ms']:.4f}), from the device trace")
+
+
 def ragged_contexts():
     rng = torch.Generator().manual_seed(1)
     return [int(x) for x in torch.randint(100, 2048, (16,), generator=rng)]
 
 
 # ----------------------------------------------------------- B1 (prefill)
-def b1_smem_bytes(size, dh, warps):
-    """B1's dynamic shared memory per block, from the tile sizes of
-    csrc/paged_prefill_attention.cu (``Layout``): a Q tile of 16 rows per
-    warp and two stages of K and V tiles (32 keys in fp32 and in one-warp
-    split tiles, else 64), rows padded by 16 B, and in fp32 a P tile."""
+def tile_smem_bytes(size, dh, warps):
+    """Dynamic shared memory per block of the kernels' shared tile, from
+    its sizes (``Layout`` in src/repro_torch/kernels/csrc/attention_tile.cuh):
+    a Q tile of 16 rows per warp and two stages of K and V tiles (32 keys
+    in fp32 and in one-warp split tiles, else 64), rows padded by 16 B, and
+    in fp32 a P tile."""
     keys = 32 if warps == 1 or size == 4 else 64
     nbytes = (16 * warps + 2 * 2 * keys) * (dh + 16 // size) * size
     return nbytes + (warps * 16 * (keys + 4) * 4 if size == 4 else 0)
@@ -223,7 +271,7 @@ def bound(args, dname):
     return roofline(nbytes, flops, dname) + (nbytes, flops)
 
 
-def sdpa_ms(args, flush):
+def sdpa_call(args):
     """One PyTorch call computing the same function: SDPA over K/V
     gathered to dense beforehand (outside the timing), with the causal +
     length mask."""
@@ -242,11 +290,10 @@ def sdpa_ms(args, flush):
     mask = (k_pos[None, None] <= q_pos[:, :, None]) \
         & (k_pos[None, None] < lengths.long()[:, None, None])
     mask = mask[:, None]                                    # (B, 1, M, S)
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qf, K, V, attn_mask=mask), 10, flush)
+    return lambda: F.scaled_dot_product_attention(qf, K, V, attn_mask=mask)
 
 
-def prefill_kernel_phase(dev, flush):
+def prefill_kernel_phase(dev, flush, profile):
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import \
         paged_prefill_attention_ref
@@ -282,9 +329,14 @@ def prefill_kernel_phase(dev, flush):
         ms = time_ms(lambda: ops.paged_prefill_attention(*args), 20, flush)
         plain = time_ms(lambda: paged_prefill_attention_ref(*args), 3,
                         flush)
-        lib = sdpa_ms(args, flush)
+        sdpa = sdpa_call(args)
+        lib = time_ms(sdpa, 10, flush)
         results[name] = report("B1", name, list(args[0].shape), dname,
                                max_err, ms, plain, lib, *bound(args, dname))
+        if profile and name in DEVICE_TIMED["B1"]:
+            log_device_ms("B1", name, results[name],
+                          lambda: ops.paged_prefill_attention(*args), sdpa,
+                          flush)
         # the wrapper's host time with q in the model's layout (the
         # transposed view gqa_prefill_paged passes)
         qv = args[0].transpose(1, 2).contiguous().transpose(1, 2)
@@ -344,7 +396,7 @@ def bound_decode(args, dname):
     return roofline(nbytes, flops, dname) + (nbytes, flops)
 
 
-def sdpa_decode_ms(args, flush):
+def sdpa_decode_call(args):
     """SDPA over K/V gathered to dense beforehand (outside the timing),
     with the length mask: the r query rows of a kv head as its queries."""
     import torch.nn.functional as F
@@ -357,11 +409,10 @@ def sdpa_decode_ms(args, flush):
     V = vpool[bt].reshape(B, Hkv, S, dh)
     mask = (torch.arange(S, device=q.device)[None]
             < lengths.long()[:, None])[:, None, None, :]   # (B, 1, 1, S)
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        q, K, V, attn_mask=mask), 10, flush)
+    return lambda: F.scaled_dot_product_attention(q, K, V, attn_mask=mask)
 
 
-def decode_kernel_phase(dev, flush):
+def decode_kernel_phase(dev, flush, profile):
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     ragged = ragged_contexts()
@@ -393,9 +444,16 @@ def decode_kernel_phase(dev, flush):
         max_err = check_kernel(name, got, ref, lens == 0, dname)
         ms = time_ms(lambda: ops.paged_attention(*args), 20, flush)
         plain = time_ms(lambda: paged_attention_ref(*clipped), 3, flush)
-        lib = sdpa_decode_ms(args, flush)
+        sdpa = sdpa_decode_call(args)
+        lib = time_ms(sdpa, 10, flush)
         results[name] = report("B2", name, list(q.shape), dname, max_err, ms,
                                plain, lib, *bound_decode(args, dname))
+        host = host_ms(lambda: ops.paged_attention(*args), 20)
+        results[name]["host_ms"] = host
+        log(f"B2 {name}: wrapper host_ms {host:.4f} per call")
+        if profile and name in DEVICE_TIMED["B2"]:
+            log_device_ms("B2", name, results[name],
+                          lambda: ops.paged_attention(*args), sdpa, flush)
         del args, clipped, q, kpool, vpool, got, ref
         torch.cuda.empty_cache()
     return results
@@ -423,7 +481,7 @@ def bound_flash(q, k, causal, window, dname):
     return roofline(nbytes, flops, dname) + (nbytes, flops)
 
 
-def sdpa_flash_ms(q, k, v, causal, window, flush):
+def sdpa_flash_call(q, k, v, causal, window):
     """F.scaled_dot_product_attention on the same inputs (GQA by
     enable_gqa; the window as a boolean mask)."""
     import torch.nn.functional as F
@@ -431,22 +489,24 @@ def sdpa_flash_ms(q, k, v, causal, window, flush):
         qp = torch.arange(q.shape[2], device=q.device)[:, None]
         kp = torch.arange(k.shape[2], device=q.device)[None, :]
         mask = (qp - kp < window) & ((qp >= kp) if causal else True)
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), 10, flush)
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), 10, flush)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
 
 
-def flash_kernel_phase(dev, flush):
+def flash_kernel_phase(dev, flush, profile):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     qwen = dict(Hq=40, Hkv=8, dh=128)
     cases = {
         # qwen3-14b's dense prefill of a 1024-token prompt
         "prefill": (torch.bfloat16, qwen, 1024, True, 0),
+        # the engine's shortest prompt: 8 kv heads x 640 folded rows
+        "prefill_128": (torch.bfloat16, qwen, 128, True, 0),
         "prefill_fp32": (torch.float32, qwen, 1024, True, 0),
         "window": (torch.bfloat16, qwen, 1024, True, 256),
-        # S not a multiple of the 64-query / 32-key tiles
+        # S not a multiple of the 64-row / 64-key tiles
         "noncausal": (torch.bfloat16, qwen, 1000, False, 0),
         # MHA at qwen1.5-0.5b's and phi3-mini's head widths
         "mha_dh64": (torch.bfloat16, dict(Hq=16, Hkv=16, dh=64), 1024, True,
@@ -461,21 +521,28 @@ def flash_kernel_phase(dev, flush):
         rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
         q = rnd(1, w["Hq"], S, w["dh"])
         k, v = rnd(1, w["Hkv"], S, w["dh"]), rnd(1, w["Hkv"], S, w["dh"])
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        call = lambda: ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+        got = call()
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         blind = (ref == 0).all(-1)            # rows that see no key: none
         max_err = check_kernel(name, got, ref, blind, dname)
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                 window=window), 20, flush)
+        ms = time_ms(call, 20, flush)
         plain = time_ms(lambda: flash_attention_ref(
             q, k, v, causal=causal, window=window), 3, flush)
-        lib = sdpa_flash_ms(q, k, v, causal, window, flush)
+        sdpa = sdpa_flash_call(q, k, v, causal, window)
+        lib = time_ms(sdpa, 10, flush)
         results[name] = report(
             "B3", name, list(q.shape), dname, max_err, ms, plain, lib,
             *bound_flash(q, k, causal, window, dname))
         results[name].update(kv_shape=list(k.shape), causal=causal,
                              window=window)
+        host = host_ms(call, 20)
+        results[name]["host_ms"] = host
+        log(f"B3 {name}: wrapper host_ms {host:.4f} per call")
+        if profile and name in DEVICE_TIMED["B3"]:
+            log_device_ms("B3", name, results[name], call, sdpa, flush)
         del q, k, v, got, ref
         torch.cuda.empty_cache()
     return results
@@ -1183,8 +1250,9 @@ def kernel_entry(kid, case, launches):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="trace the engine steps after the checked ones and "
-                    "print device busy time and kernel times")
+                    help="read the kernel table's cases from the device "
+                    "trace, and trace the engine steps after the checked ones "
+                    "and print device busy time and kernel times")
     ap.add_argument("--out", default=None,
                     help="also write every measurement as JSON here")
     args = ap.parse_args(argv)
@@ -1218,18 +1286,20 @@ def main(argv=None) -> int:
         f"and loaded in {time.perf_counter() - t0:.1f} s")
     for name, _ in sources:
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or (
-                    name == NAMES["B1"] and "Compiling entry" in line):
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
-    log(f"build: {NAMES['B1']}: dynamic shared memory per block " + ", ".join(
-        f"{dt} dh {dh} {w} warp(s) {b1_smem_bytes(size, dh, w)} B"
-        for dt, size in (("fp32", 4), ("bf16", 2)) for dh in ops.HEAD_DIMS
-        for w in (1, 4)))
+    for kid, warps in (("B1", (1, 4)), ("B2", (1,)), ("B3", (4,))):
+        log(f"build: {NAMES[kid]}: dynamic shared memory per block " +
+            ", ".join(f"{dt} dh {dh} {w} warp(s) "
+                      f"{tile_smem_bytes(size, dh, w)} B"
+                      for dt, size in (("fp32", 4), ("bf16", 2))
+                      for dh in ops.HEAD_DIMS for w in warps))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
-    b1 = prefill_kernel_phase(dev, flush)
-    b2 = decode_kernel_phase(dev, flush)
-    b3 = flash_kernel_phase(dev, flush)
+    b1 = prefill_kernel_phase(dev, flush, args.profile)
+    b2 = decode_kernel_phase(dev, flush, args.profile)
+    b3 = flash_kernel_phase(dev, flush, args.profile)
     del flush
     small_engine_phase(dev)
     # the engine phases serve the same weights; each engine's pools are

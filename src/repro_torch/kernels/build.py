@@ -1,12 +1,14 @@
 """Build-at-first-use loader for the port's CUDA kernels.
 
 Each kernel source under a ``csrc/`` directory has a plain C interface.
-It is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+It is compiled with ``nvcc`` for Hopper (``sm_90a``), with the shared
+device headers of ``kernels/csrc/`` on its include path, into a shared
 library under ``build/kernels/`` at the repository root, keyed on a hash
-of the source and the flags, and loaded with ``ctypes``.  Nothing is
-compiled when a module is imported: only a wrapper's first launch on a
-CUDA tensor calls :func:`load`, and :func:`build_all` compiles several
-sources at once (one ``nvcc`` process each, all started together).
+of the source, every header under ``kernels/`` and the flags, and loaded
+with ``ctypes``.  Nothing is compiled when a module is imported: only a
+wrapper's first launch on a CUDA tensor calls :func:`load`, and
+:func:`build_all` compiles several sources at once (one ``nvcc`` process
+each, all started together).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,9 +39,16 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str, source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """The library built from ``source``: its name carries a hash of the
+    source, of every header a source can include (all ``*.cuh`` under
+    ``kernels/``, by path and content) and of the flags, so an edited
+    header builds anew."""
+    key = hashlib.sha256(source.read_bytes())
+    for header in sorted(KERNELS_DIR.rglob("*.cuh")):
+        key.update(str(header.relative_to(KERNELS_DIR)).encode())
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[Tuple[str, Path]]) -> None:
@@ -51,7 +61,8 @@ def build_all(sources: Sequence[Tuple[str, Path]]) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I",
+                                 str(KERNELS_DIR / "csrc"), "-o", str(tmp),
                                  str(source)], stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((name, source, so, tmp, proc))

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # (library name, source) of every kernel here, for build.build_all
 SOURCES = (("flash_attention", CSRC / "flash_attention.cu"),)
 HEAD_DIMS = (64, 96, 128)
-BLOCK_M = 64                   # query rows per block of the kernel
+FOLDED_ROWS = 64               # (position, query head) rows per block
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches so far (a run resets it to 0 and reads it back to show
@@ -40,8 +40,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 
 def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention", dict(SOURCES)["flash_attention"])
-    lib.flash_attention.argtypes = _ARGTYPES
-    lib.flash_attention.restype = ctypes.c_int
+    fn = lib.flash_attention               # the same object on every call
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -68,14 +70,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {dh} not supported ({HEAD_DIMS})")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
         if t.data_ptr() % 16 or any(
-                t.stride(i) % vec for i in range(3) if t.shape[i] > 1):
+                s % vec for s, n in zip(st[:3], t.shape) if n > 1):
             raise ValueError(f"{name}'s rows must start on 16-byte "
                              f"boundaries")
-    if B > 65535 or -(-Sq // BLOCK_M) > 65535:
-        raise ValueError(f"grid too large: batch {B}, {Sq} queries")
+    # grid (Hkv, B, query tiles of FOLDED_ROWS folded rows)
+    if (B > 65535 or k.shape[1] > 65535
+            or -(-Sq * (Hq // k.shape[1]) // FOLDED_ROWS) > 65535):
+        raise ValueError(f"grid too large: batch {B}, {k.shape[1]} kv "
+                         f"heads, {Sq} queries of {Hq} heads")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,6 +97,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows that see no key are 0.  ``block_q``/``block_k`` are the Pallas
     kernel's tiling knobs, kept for the reference's signature: the CUDA
     kernel tiles by its own constants and needs no padding.
+
+    On CUDA tensors bf16 runs both products on the tensor cores and fp32
+    on the CUDA cores (never TF32), chosen by dtype alone.
     """
     if layout not in ("BHSD", "BSHD"):
         raise ValueError(f"layout {layout!r}: 'BHSD' or 'BSHD'")
@@ -110,8 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = out_l = torch.empty((B, Hq, Sq, dh), dtype=q.dtype,
                                   device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(
-        t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         err = _library().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -19,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,13 +32,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (("paged_attention", CSRC / "paged_attention.cu"),
            ("paged_prefill_attention", CSRC / "paged_prefill_attention.cu"))
 HEAD_DIMS = (64, 96, 128)
-MAX_GROUP = 16                 # query rows per kv head the decode kernel takes
-# keys per span of the decode kernel's context split (rounded to pages)
-SPLIT_KEYS = 128
-# the chunked-prefill kernel's split plan: a (row, kv head) with at most
-# SPLIT_ROWS folded query rows is one one-warp tile of the kernel
-# (csrc/paged_prefill_attention.cu) whose keys are split into spans of
-# whole key tiles
+# the split plan of both kernels: a (row, kv head) with at most SPLIT_ROWS
+# folded query rows (every decode call's r query rows) is one one-warp tile
+# (csrc/paged_block.cuh) whose keys are split into spans of whole key
+# tiles
 SPLIT_ROWS = 16
 SPAN_ALIGN = 64                # a multiple of every key tile of the kernel
 SPLIT_BLOCKS = 1024            # blocks the split plan aims to put on the card
@@ -51,7 +48,8 @@ LAUNCHES = {"paged_attention": 0, "paged_prefill_attention": 0}
 
 # C signatures: tensor pointers, int sizes, then scale, dtype and stream
 _ARGTYPES = {
-    "paged_attention": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8,
+    "paged_attention": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2,
     "paged_prefill_attention": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2,
 }
@@ -100,18 +98,49 @@ def _check(q, kpool, vpool, block_tables, *rows) -> None:
         raise ValueError(f"lengths/starts must be ({B},)")
 
 
+def _q_strides(q: torch.Tensor) -> list:
+    """q's strides as the kernels read them (elements; a size-1 dim's
+    stride is never used and passes as 0): the last dim contiguous, the
+    others 16-byte multiples."""
+    strides = [0 if n == 1 else st for n, st in zip(q.shape, q.stride())]
+    if strides[-1] not in (0, 1) or any(st * q.element_size() % 16
+                                        for st in strides[:-1]):
+        raise ValueError(f"q strides {tuple(q.stride())}: the last dim must "
+                         f"be contiguous and the others 16-byte multiples")
+    return strides
+
+
+def _split_scratch(B: int, Hkv: int, C: int, r: int, dh: int,
+                   n_splits: int, device
+                   ) -> Tuple[Optional[torch.Tensor], list]:
+    """The fp32 scratch of a split launch and pointers to its (acc, m, l)
+    partials in it; (None, null pointers) where the keys are not split.
+    The caller holds the tensor until the launch is enqueued."""
+    n_scratch = split_scratch_floats(B, Hkv, C, r, dh, n_splits)
+    if not n_scratch:
+        return None, [None] * 3
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=device)
+    rows = n_scratch // (dh + 2)
+    base = scratch.data_ptr()
+    return scratch, [base, base + rows * dh * 4, base + rows * (dh + 1) * 4]
+
+
 def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
                     vpool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Decode attention over the head-granular paged pool.
 
-    q:            (B, Hkv, r, dh) new-token queries, grouped per kv head
+    q:            (B, Hkv, r, dh) new-token queries, grouped per kv head,
+                  any strides with the last dim contiguous
     kpool/vpool:  (num_slots, page_size, dh) — one layer of the pools, a
                   view into the (L, slots, page, dh) pool (no copy)
     block_tables: (B, Hkv, max_pages) int — entries past the length may be
                   arbitrary ids; they are clipped into range
     lengths:      (B,) int tokens stored per row (0 pads: the output is 0)
     returns       (B, Hkv, r, dh)
+
+    On CUDA tensors bf16 runs both products on the tensor cores and fp32
+    on the CUDA cores (never TF32), chosen by dtype alone.
     """
     if q.ndim != 4 or kpool.ndim != 3 or block_tables.ndim != 3:
         raise ValueError(f"bad ranks: q {tuple(q.shape)}, kpool "
@@ -119,32 +148,27 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
                          f"{tuple(block_tables.shape)}")
     B, Hkv, r, dh = q.shape
     slots, page, _ = kpool.shape
-    block_tables = block_tables.clamp(0, slots - 1)
     if not q.is_cuda:
-        return paged_attention_ref(q, kpool, vpool, block_tables, lengths)
-    qc = q.contiguous()
-    _check(qc, kpool, vpool, block_tables, lengths)
-    if r > MAX_GROUP:
+        return paged_attention_ref(q, kpool, vpool,
+                                   block_tables.clamp(0, slots - 1), lengths)
+    _check(q, kpool, vpool, block_tables, lengths)
+    if r > SPLIT_ROWS:
         raise ValueError(f"{r} query rows per kv head; the kernel takes "
-                         f"at most {MAX_GROUP}")
+                         f"at most {SPLIT_ROWS}")
+    strides = _q_strides(q)
     fn = _library("paged_attention").paged_attention
     max_pages = block_tables.shape[-1]
-    split_keys = page * max(1, SPLIT_KEYS // page)
-    n_splits = -(-max_pages * page // split_keys)
+    n_splits, span = split_plan(B, Hkv, 1, r, max_pages, page)
+    # table entries are clamped into the pool inside the kernel
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, Hkv, r, dh), dtype=q.dtype, device=q.device)
-    # fp32 partials of each context span: m, l (B, Hkv, S, r), acc (.., dh)
-    m_part = torch.empty((B, Hkv, n_splits, r), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, Hkv, n_splits, r, dh), dtype=torch.float32,
-                           device=q.device)
+    scratch, parts = _split_scratch(B, Hkv, 1, r, dh, n_splits, q.device)
     with torch.cuda.device(q.device):
-        err = fn(qc.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 B, Hkv, r, dh, page, max_pages, split_keys, n_splits,
+                 parts[1], parts[2], parts[0], B, Hkv, r, dh, page,
+                 max_pages, slots, *strides[:3], n_splits, span,
                  1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -155,13 +179,14 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
 
 def split_plan(B: int, Hkv: int, C: int, r: int, max_pages: int,
                page: int) -> Tuple[int, int]:
-    """(n_splits, span) of the chunked-prefill kernel's key axis, from
-    shapes alone (no device-to-host read).  Only where a (row, kv head)
-    has a single query tile of at most ``SPLIT_ROWS`` folded rows (decode
-    rows: C * r == r) are its keys cut into ``n_splits`` spans of ``span``
-    keys, a multiple of ``SPAN_ALIGN``, so that about ``SPLIT_BLOCKS``
-    blocks fill the card; the spans cover the table's max_pages * page
-    keys once.  Elsewhere one span covers the table."""
+    """(n_splits, span) of the paged kernels' key axis, from shapes alone
+    (no device-to-host read); the decode kernel's is the C = 1 plan.  Only
+    where a (row, kv head) has a single query tile of at most
+    ``SPLIT_ROWS`` folded rows (decode rows: C * r == r) are its keys cut
+    into ``n_splits`` spans of ``span`` keys, a multiple of
+    ``SPAN_ALIGN``, so that about ``SPLIT_BLOCKS`` blocks fill the card;
+    the spans cover the table's max_pages * page keys once.  Elsewhere one
+    span covers the table."""
     S = max_pages * page
     tiles = max(1, -(-S // SPAN_ALIGN))
     if C * r > SPLIT_ROWS or B * Hkv == 0:
@@ -212,12 +237,8 @@ def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
                                            lengths, starts)
     _check(q, kpool, vpool, block_tables, lengths, starts)
     # q is read through its strides (the model's transposed view is not
-    # copied); a size-1 dim's stride is never used
-    strides = [0 if n == 1 else st for n, st in zip(q.shape, q.stride())]
-    if strides[4] not in (0, 1) or any(st * q.element_size() % 16
-                                       for st in strides[:4]):
-        raise ValueError(f"q strides {tuple(q.stride())}: the last dim must "
-                         f"be contiguous and the others 16-byte multiples")
+    # copied)
+    strides = _q_strides(q)
     fn = _library("paged_prefill_attention").paged_prefill_attention
     max_pages = block_tables.shape[-1]
     n_splits, span = split_plan(B, Hkv, C, r, max_pages, page)
@@ -226,14 +247,7 @@ def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
     lens = lengths.to(torch.int32).contiguous()
     sts = starts.to(torch.int32).contiguous()
     out = torch.empty((B, C, Hkv, r, dh), dtype=q.dtype, device=q.device)
-    parts = [None] * 3                     # acc, m, l partials of a split
-    n_scratch = split_scratch_floats(B, Hkv, C, r, dh, n_splits)
-    if n_scratch:
-        scratch = torch.empty(n_scratch, dtype=torch.float32,
-                              device=q.device)
-        rows = n_scratch // (dh + 2)
-        base = scratch.data_ptr()
-        parts = [base, base + rows * dh * 4, base + rows * (dh + 1) * 4]
+    scratch, parts = _split_scratch(B, Hkv, C, r, dh, n_splits, q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), sts.data_ptr(),

@@ -261,9 +261,69 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.paged_attention(q.expand(-1, -1, 17, -1), k, v, tables, lengths)
 
 
+# the decode kernel's tensor-core split tiles: out-of-range table entries
+# past each length (clamped in the kernel: the wrapper no longer clamps),
+# MHA r = 1 at dh 96 over split spans, r = 16 (a full m16 tile), every row
+# padded, and a batch large enough that the plan does not split
+DECODE_EDGES = {
+    "bad_tables_bf16": dict(Hkv=8, r=5, dh=128, page=16, maxp=64,
+                            lengths=[1000, 1, 17, 640], bad=True),
+    "mha_r1_dh96": dict(Hkv=4, r=1, dh=96, page=16, maxp=32,
+                        lengths=[512, 0, 3, 300]),
+    "r16": dict(Hkv=2, r=16, dh=128, page=16, maxp=16,
+                lengths=[256, 100, 1]),
+    "all_padded": dict(Hkv=8, r=5, dh=64, page=16, maxp=8,
+                       lengths=[0, 0, 0]),
+    "unsplit": dict(Hkv=8, r=5, dh=128, page=16, maxp=4,
+                    lengths=[64, 1, 33] * 48),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+def test_decode_kernel_edges_match_plain(cuda, name, dtype):
+    shape = dict(DECODE_EDGES[name])
+    bad = shape.pop("bad", False)
+    q, k, v, tables, lengths = make_decode(cuda, dtype, **shape)
+    if bad:
+        past = torch.arange(shape["maxp"], device=cuda)[None, None] \
+            >= ((lengths + shape["page"] - 1) // shape["page"])[:, None, None]
+        tables = torch.where(past, torch.where(
+            torch.rand(tables.shape, device=cuda) < 0.5, -7,
+            k.shape[0] + 5), tables).to(torch.int32)
+    n_splits, _ = ops.split_plan(len(shape["lengths"]), shape["Hkv"], 1,
+                                 shape["r"], shape["maxp"], shape["page"])
+    assert (n_splits == 1) == (name == "unsplit")
+    got = ops.paged_attention(q, k, v, tables, lengths)
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, k, v, tables.clamp(0, k.shape[0] - 1),
+                              lengths)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+        err.max().item()
+    for b in (lengths == 0).nonzero().flatten().tolist():
+        assert torch.all(got[b] == 0)
+
+
+def test_decode_kernel_reads_q_by_its_strides(cuda):
+    """q as the transposed view of a (B, r, Hkv, dh) tensor and as a slice
+    of a wider one gives exactly what a contiguous q gives (no copy)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, tables, lengths = make_decode(cuda, dtype,
+                                               **DECODE_SHAPES[0])
+        views = (q.transpose(1, 2).contiguous().transpose(1, 2),
+                 torch.cat([q, q], dim=-1)[..., :q.shape[-1]])
+        want = ops.paged_attention(q, k, v, tables, lengths)
+        for qv in views:
+            assert not qv.is_contiguous()
+            got = ops.paged_attention(qv, k, v, tables, lengths)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
 # dense flash attention: (B, Hq, Hkv, Sq, Sk, dh, causal, window) — the
 # reference's kernel test cases at the head dims the kernel takes, S not a
-# multiple of the 64-query / 32-key tiles, qwen3-14b's r = 5 at dh 128,
+# multiple of the 64-row / 64-key tiles, qwen3-14b's r = 5 at dh 128,
 # and keys shorter than the queries so windowed rows see no key
 FLASH_SHAPES = [
     (1, 4, 4, 128, 128, 64, True, 0),        # MHA
@@ -276,6 +336,20 @@ FLASH_SHAPES = [
     (1, 4, 2, 200, 200, 96, True, 48),
     (1, 4, 2, 128, 128, 128, False, 96),
     (1, 4, 2, 130, 70, 64, True, 16),        # rows past kv + window: 0
+    # the folded-row tiles: the r = 5 rows of a position straddle 64-row
+    # tiles (S = 100, 150, 1000), 64 / 65 / 128 / 129 folded rows (r = 1)
+    # on both sides of a tile edge, and keys shorter than the queries at
+    # r = 5
+    (1, 10, 2, 100, 100, 64, True, 0),
+    (1, 10, 2, 150, 150, 96, True, 0),
+    (1, 40, 8, 1000, 1000, 128, True, 0),
+    (2, 10, 2, 150, 150, 128, False, 0),
+    (1, 10, 2, 1000, 1000, 96, True, 200),
+    (1, 2, 2, 64, 64, 64, True, 0),
+    (1, 2, 2, 65, 65, 128, True, 0),
+    (1, 2, 2, 128, 128, 96, True, 0),
+    (1, 2, 2, 129, 129, 128, False, 0),
+    (1, 10, 2, 130, 70, 128, True, 16),
 ]
 
 

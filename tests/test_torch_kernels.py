@@ -1,7 +1,10 @@
 """Chunked paged-prefill attention: the port's wrapper on CPU tensors (its
 plain version) against the reference's Pallas kernel (interpret mode,
 through ``ops``) and its pure-jnp oracle, on identical inputs made with
-numpy.  Tolerances are the reference's own (tests/test_kernels.py)."""
+numpy.  Tolerances are the reference's own (tests/test_kernels.py).  Then
+the kernel build's library key."""
+
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ from repro.kernels.paged_attention import (paged_prefill_attention as
                                            paged_prefill_attention_ref as
                                            jax_paged_prefill_ref)
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops
 
 # fp32: 2e-5 (two fp32 softmax pipelines, summed in another order);
@@ -134,3 +138,25 @@ def test_wrapper_rejects_bad_ranks():
                                     torch.zeros((1, 1, 2), dtype=torch.int32),
                                     torch.zeros(1, dtype=torch.int32),
                                     torch.zeros(1, dtype=torch.int32))
+
+
+def test_library_key_covers_included_headers(tmp_path, monkeypatch):
+    """Editing the bytes of a shared header, or of a kernel's own header,
+    gives every kernel a new library path (a copy of the kernel tree is
+    edited; nothing is compiled)."""
+    tree = tmp_path / "kernels"
+    shutil.copytree(build.KERNELS_DIR, tree,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    sources = {name: tree / src.relative_to(build.KERNELS_DIR)
+               for name, src in (ops.SOURCES + fa_ops.SOURCES)}
+    monkeypatch.setattr(build, "KERNELS_DIR", tree)
+    before = {n: build._library_path(n, s) for n, s in sources.items()}
+    assert before == {n: build._library_path(n, s)
+                      for n, s in sources.items()}
+    for header in ("csrc/mma_tiles.cuh", "csrc/attention_tile.cuh",
+                   "paged_attention/csrc/paged_block.cuh"):
+        path = tree / header
+        path.write_bytes(path.read_bytes() + b"\n")
+        after = {n: build._library_path(n, s) for n, s in sources.items()}
+        assert all(after[n] != before[n] for n in sources), header
+        before = after
