@@ -31,7 +31,11 @@ Phases, in order; any failure exits nonzero:
   4. small:   a reduced fp32 engine on the GPU (kernels) against the same
               engine on the CPU (plain attention), under the fused step, the
               split schedule and the three dense mode combinations: identical
-              tokens, and every mode's tokens == the fused step's.
+              tokens, and every mode's tokens == the fused step's.  Then the
+              reduced dbrx (MoE) the same way under the fused step and the
+              split schedule, its row batches past 64 token rows (the capped
+              MoE pass, which drops assignments), every MoE call on the GPU
+              run under torch.cuda.set_sync_debug_mode("error").
   5. engine:  the port's InferenceEngine serving qwen3-14b at full width
               and depth with seeded random weights, on a simulated
               A100 + 3090 cluster whose two pool shards both live on this
@@ -53,6 +57,15 @@ Phases, in order; any failure exits nonzero:
               and a dropped-key-tile re-run).  Dense decode runs only in the
               small phase: it copies every request's dense cache through the
               host on every step.
+  7. dbrx:    phase 5's engine, requests and gates on dbrx-132b (16 experts,
+              top 4) at its published widths and 8 of its 40 layers, under
+              the fused step and the split schedule; the token-row counts
+              the MoE layer saw are logged, and with --profile the MoE
+              layer's share of device busy time (marker kernels around each
+              call bound it in the trace).
+  8. dense configs: phase 5's fused run on qwen1.5-0.5b, phi3-mini-3.8b and
+              minitron-8b at full width and depth, and on qwen1.5-0.5b with
+              fp8 (e4m3) KV pools.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -90,8 +103,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # full-width call logits, kernel vs plain re-run, relative L2: near the
 # geometric mean of the bf16 noise floor (plain with P rounded vs plain:
 # 0.0145 and 0.0184 for the fused step on an H100) and a fault (plain with
-# one page dropped vs plain: 0.72 and 1.38); PERF.md gives the readings
+# one page dropped vs plain: 0.72 and 1.38), which holds for every served
+# config (dbrx's MoE routing included); PERF.md gives the readings.  Every
+# run asserts floor < limit < fault.
 LOGITS_LIMIT = 0.1
+# dbrx-132b at 8 of its 40 layers: its published widths, on one card
+DBRX_LAYERS = 8
 NAMES = {"B1": "paged_prefill_attention", "B2": "paged_attention",
          "B3": "flash_attention"}
 
@@ -642,6 +659,71 @@ def plain_flash(round_p=False, drop_tile=False):
     return fn
 
 
+# ------------------------------------------------------------- MoE layer
+MARKER = "spin_kernel"                     # torch.cuda._sleep's kernel
+
+
+class MoeWatch:
+    """Wraps the model's MoE layer (``mlp.moe_apply``) while a phase runs:
+    ``calls`` gathers the token-row count T of every call.  ``no_sync``
+    runs each call on a CUDA tensor under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``markers`` launches a
+    marker kernel before and after each call, so the profiler's trace can
+    bound the layer's device work (``marked_device_us``)."""
+
+    def __init__(self, no_sync=False, markers=False):
+        from repro_torch.models import mlp
+        self.mlp, self.fn = mlp, mlp.moe_apply
+        self.no_sync, self.markers = no_sync, markers
+        self.calls = []
+
+    def _call(self, cfg, p, x):
+        self.calls.append(x.shape[0] * x.shape[1])
+        if self.markers:
+            torch.cuda._sleep(0)
+        if self.no_sync and x.is_cuda:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = self.fn(cfg, p, x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            out = self.fn(cfg, p, x)
+        if self.markers:
+            torch.cuda._sleep(0)
+        return out
+
+    def __enter__(self):
+        self.mlp.moe_apply = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp.moe_apply = self.fn
+
+    def summary(self):
+        """(sorted distinct T, calls over 64 token rows: the capped pass)."""
+        return (sorted(collections.Counter(self.calls).items()),
+                sum(T > 64 for T in self.calls))
+
+
+def marked_device_us(prof):
+    """(device us between marker pairs, pairs) of a profiler trace: the
+    device work (kernels, copies, memsets) launched between each pair of
+    ``MARKER`` kernels."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    inside, us, pairs = False, 0.0, 0
+    for e in evs:
+        if MARKER in e.name:
+            inside = not inside
+            pairs += not inside
+        elif inside:
+            us += e.time_range.elapsed_us()
+    return us, pairs
+
+
 # ------------------------------------------------------------- small engine
 def to_device(tree, dev):
     if isinstance(tree, dict):
@@ -668,34 +750,44 @@ SMALL_MODES = {
 }
 
 
+def small_engine(cfg, cpu_params, device, modes):
+    """The small phase's engine on ``device`` serving its 6 requests:
+    (tokens by request id, the MoE layer's token-row counts)."""
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    eng = InferenceEngine(
+        cfg, to_device(cpu_params, device),
+        ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=8, max_seq=128, page_size=16,
+                                prefill_chunk=16, **modes), device=device)
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        eng.submit(Request(rid=i, prompt=[
+            int(x) for x in rng.integers(0, cfg.vocab_size,
+                                         int(rng.integers(5, 60)))],
+            max_new_tokens=8))
+    with MoeWatch(no_sync=True) as moe:
+        assert eng.run_until_drained(500)
+    return {r.rid: r.output for r in eng.finished}, moe.calls
+
+
 def small_engine_phase(dev):
     """Reduced fp32 qwen3 family (dh 64, so the kernels take it): under
     each schedule and mode combination the engine on the GPU must emit the
-    CPU engine's tokens, and every mode the fused step's."""
+    CPU engine's tokens, and every mode the fused step's.  Then the
+    reduced dbrx (dh 64) under the fused step and the split schedule, GPU
+    against CPU: 8 rows x 16 tokens = 128 token rows pass 64, so the MoE
+    layer takes its capped pass, and on the GPU it never synchronises."""
     from repro_torch.configs import smoke_config
-    from repro_torch.core.cluster import ClusterSpec
-    from repro_torch.serving import EngineConfig, InferenceEngine, Request
     from repro_torch.weights import init_params
     cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
     cpu_params = init_params(cfg, 0, device="cpu")
     outs = {}
     for mode, modes in SMALL_MODES.items():
         for device in ("cpu", dev):
-            eng = InferenceEngine(
-                cfg, to_device(cpu_params, device),
-                ClusterSpec.build([("A100", 1), ("3090", 1)]),
-                primary_ids=[0], pool_ids=[1],
-                engine_cfg=EngineConfig(max_batch=8, max_seq=128,
-                                        page_size=16, prefill_chunk=16,
-                                        **modes), device=device)
-            rng = np.random.default_rng(0)
-            for i in range(6):
-                eng.submit(Request(rid=i, prompt=[
-                    int(x) for x in rng.integers(0, cfg.vocab_size,
-                                                 int(rng.integers(5, 60)))],
-                    max_new_tokens=8))
-            assert eng.run_until_drained(500)
-            outs[mode, str(device)] = {r.rid: r.output for r in eng.finished}
+            outs[mode, str(device)] = small_engine(cfg, cpu_params, device,
+                                                   modes)[0]
         if outs[mode, "cpu"] != outs[mode, str(dev)]:
             raise AssertionError(
                 f"small engine ({mode}): GPU tokens {outs[mode, str(dev)]} "
@@ -707,6 +799,22 @@ def small_engine_phase(dev):
             raise AssertionError(f"small engine: {mode} tokens != fused "
                                  f"tokens")
     log(f"small engine: {', '.join(SMALL_MODES)}: identical token streams")
+
+    cfg = dataclasses.replace(smoke_config("dbrx-132b"), head_dim=64)
+    cpu_params = init_params(cfg, 0, device="cpu")
+    for mode in ("fused", "split"):
+        modes = SMALL_MODES[mode]
+        want, _ = small_engine(cfg, cpu_params, "cpu", modes)
+        got, calls = small_engine(cfg, cpu_params, dev, modes)
+        if got != want:
+            raise AssertionError(f"small dbrx ({mode}): GPU tokens {got} != "
+                                 f"CPU tokens {want}")
+        capped = sum(T > 64 for T in calls)
+        assert capped > 0, sorted(set(calls))
+        log(f"small dbrx ({mode}): 6 requests, GPU == CPU token streams "
+            f"({sum(len(v) for v in want.values())} tokens); MoE calls on "
+            f"the GPU {len(calls)}, {capped} of them capped (T > 64; T seen "
+            f"{sorted(set(calls))}), none synchronised with the host")
 
 
 # ------------------------------------------------------------- engine phase
@@ -800,6 +908,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     # hold the first call of each kind against re-runs of the same call
     # with plain attention
     checks = {}
+    moe = MoeWatch(markers=profile)        # the MoE layer's calls, if any
     checked_calls = set()                  # their call times are left out
     check_s = [0.0]                        # wall seconds the checks add
     call_fn = getattr(eng, wrapped).fn
@@ -851,6 +960,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         torch.cuda.synchronize()
         t = time.perf_counter()
         launches = dict(ops.LAUNCHES)
+        n_moe = len(moe.calls)             # the re-runs' MoE calls: not served
         # the main path's own layer-0 launch against the plain version on
         # the same inputs: no amplification through later layers
         *a0, o0 = layer0[0]
@@ -861,6 +971,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         floor = rerun(p, before_k, before_v, idx, plain(round_p=True))
         fault = rerun(p, before_k, before_v, idx, plain(wrong_page=True))
         assert ops.LAUNCHES == launches
+        del moe.calls[n_moe:]
         n_dec, n_pre, lanes = rows_of(idx, mode)
         res = dict(rel_l2=rel_l2(logits, ref),
                    floor_rel_l2=rel_l2(floor, ref),
@@ -884,28 +995,30 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         return out
 
     getattr(eng, wrapped).fn = checked
-    torch.cuda.reset_peak_memory_stats()
-    for k in ops.LAUNCHES:                 # the main path's run starts here
-        ops.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    # the checked calls come early; the window after them is all plain
-    # serving, and --profile traces exactly that window
-    while len(checks) < 2 and (eng.queue or eng.running or eng.prefilling):
-        eng.step()
-    torch.cuda.synchronize()
-    win_step0 = int(eng.metrics["steps"])
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tprofile
         prof = tprofile(activities=[ProfilerActivity.CUDA])
     else:
         prof = contextlib.nullcontext()
-    with prof:
-        tw = time.perf_counter()
-        drained = eng.run_until_drained(5000)
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:                 # the main path's run starts here
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with moe:
+        # the checked calls come early; the window after them is all
+        # plain serving, and --profile traces exactly that window
+        while len(checks) < 2 and (eng.queue or eng.running
+                                   or eng.prefilling):
+            eng.step()
         torch.cuda.synchronize()
-        win_wall = time.perf_counter() - tw
-    launches = dict(ops.LAUNCHES)          # ... and ends here
+        win_step0 = int(eng.metrics["steps"])
+        with prof:
+            tw = time.perf_counter()
+            drained = eng.run_until_drained(5000)
+            torch.cuda.synchronize()
+            win_wall = time.perf_counter() - tw
+        launches = dict(ops.LAUNCHES)      # ... and ends here
     getattr(eng, wrapped).fn = call_fn     # no cycle keeps the pools alive
     # serving wall time: the run less the checks' own work (pool copies,
     # the layer-0 plain call and the plain re-runs); every step's tokens
@@ -917,31 +1030,41 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     gen = n_req * new_tokens
     n_prompt = int(prompt_lens.sum())
 
-    out = dict(mode=mode, launches=launches, steps=steps, wall_s=wall,
+    tag = (f"{cfg.name} {cfg.n_layers}L, {cfg.kv_dtype} pools, {mode}"
+           if cfg.kv_cache_dtype else f"{cfg.name} {cfg.n_layers}L, {mode}")
+    moe_T, moe_capped = moe.summary()
+    out = dict(config=cfg.name, layers=cfg.n_layers,
+               kv_dtype=cfg.kv_dtype, mode=mode, launches=launches,
+               steps=steps, wall_s=wall,
+               moe_calls=len(moe.calls), moe_T=moe_T,
+               moe_capped_calls=moe_capped,
                check_s=check_s[0], tokens_per_s=gen / wall,
                tokens_per_s_with_prompts=(gen + n_prompt) / wall,
                checks=checks, peak_gb=peak_gb, window_steps=[
                    win_step0 + 1, steps], window_wall_s=win_wall,
                tokens={r.rid: r.output for r in eng.finished})
-    log(f"engine ({mode}): {n_req} requests, prompts {n_prompt} tokens, "
+    log(f"engine ({tag}): {n_req} requests, prompts {n_prompt} tokens, "
         f"generated {gen}; {steps} steps, {int(eng.metrics['model_calls'])} "
         f"model calls in {wall:.2f} s wall ({check_s[0]:.2f} s of checks "
         f"left out{'; with the profiler window' if profile else ''}); "
         f"{gen / wall:.2f} generated tokens/s; "
         f"{(gen + n_prompt) / wall:.1f} tokens/s incl. prompts; peak memory "
         f"{peak_gb:.1f} GB")
+    if moe.calls:
+        log(f"engine ({tag}): MoE calls {len(moe.calls)}, {moe_capped} "
+            f"capped (T > 64); token rows T seen (T: calls) {moe_T}")
     if mode == "fused":
         durs, med, p90 = span_ms(eng, "fused_step", checked_calls)
         args = [sp.args for sp in eng.tracer.spans("fused_step")]
         real = sum(a["decode_rows"] + a["prefill_tokens"] for a in args)
         padded = sum(a["batch"] * a["chunk"] for a in args)
-        log(f"engine (fused): fused-step ms median {med:.2f} p90 {p90:.2f}; "
+        log(f"engine ({tag}): fused-step ms median {med:.2f} p90 {p90:.2f}; "
             f"row batches carry {real} real tokens in {padded} computed "
             f"token rows ({real / padded:.3f}); batch buckets "
             f"{sorted(collections.Counter(a['batch'] for a in args).items())}"
             f", chunk buckets "
             f"{sorted(collections.Counter(a['chunk'] for a in args).items())}")
-        log(f"engine (fused): kernel launches B1 {launches[NAMES['B1']]} == "
+        log(f"engine ({tag}): kernel launches B1 {launches[NAMES['B1']]} == "
             f"{cfg.n_layers} layers x {steps} steps, B2 "
             f"{launches[NAMES['B2']]}; redispatches "
             f"{int(eng.metrics['redispatches'])}, evictions "
@@ -961,13 +1084,13 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         ddurs, dmed, dp90 = span_ms(eng, "paged_decode", checked_calls)
         pdurs, pmed, pp90 = span_ms(eng, "prefill_chunk")
         dargs = [sp.args for sp in eng.tracer.spans("paged_decode")]
-        log(f"engine (split): decode-call ms median {dmed:.2f} p90 "
+        log(f"engine ({tag}): decode-call ms median {dmed:.2f} p90 "
             f"{dp90:.2f} ({n_dec} calls); prefill-call ms median {pmed:.2f} "
             f"p90 {pp90:.2f} ({n_pre} calls); decode batch buckets "
             f"{sorted(collections.Counter(a['batch'] for a in dargs).items())}"
             f", pages buckets "
             f"{sorted(collections.Counter(a['pages'] for a in dargs).items())}")
-        log(f"engine (split): kernel launches B2 {launches[NAMES['B2']]} == "
+        log(f"engine ({tag}): kernel launches B2 {launches[NAMES['B2']]} == "
             f"{cfg.n_layers} layers x {n_dec} decode calls, B1 "
             f"{launches[NAMES['B1']]} == {cfg.n_layers} layers x {n_pre} "
             f"prefill calls; redispatches "
@@ -988,7 +1111,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         assert launches[NAMES["B1"]] == cfg.n_layers * n_pre > 0, \
             (launches, cfg.n_layers, n_pre)
     for kind, res in checks.items():
-        log(f"engine ({mode}): {kind} call ({res['decode_rows']} decode + "
+        log(f"engine ({tag}): {kind} call ({res['decode_rows']} decode + "
             f"{res['prefill_rows']} prefill rows, {res['lanes']} exchange "
             f"lanes) kernel vs plain: layer-0 attention max abs err "
             f"{res['layer0_max_abs']:.3g} (tol {TOL['bfloat16']}); re-run "
@@ -997,7 +1120,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
             f"page dropped {res['fault_rel_l2']:.4g}), max abs "
             f"{res['max_abs']:.3g}, argmax agreement "
             f"{res['argmax_agree']:.3f}")
-    log(f"engine ({mode}): window after the checks: steps {win_step0 + 1}-"
+    log(f"engine ({tag}): window after the checks: steps {win_step0 + 1}-"
         f"{steps}, {win_wall:.3f} s wall"
         f"{' under the profiler' if profile else ''}")
 
@@ -1014,10 +1137,11 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
             raise AssertionError(f"{kind} call logits disagree with the "
                                  f"plain re-run: {res}")
         # the limit must tell a dropped page from rounding
-        assert res["fault_rel_l2"] > LOGITS_LIMIT, res
+        assert res["floor_rel_l2"] < LOGITS_LIMIT < res["fault_rel_l2"], res
     if profile:
         out.update(profile_summary(prof, steps - win_step0, win_step0,
-                                   steps, win_wall, mode))
+                                   steps, win_wall, tag,
+                                   moe=bool(moe.calls)))
     return out
 
 
@@ -1179,7 +1303,7 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
             and check["rel_l2"] <= LOGITS_LIMIT):
         raise AssertionError(f"prefill call logits disagree with the plain "
                              f"re-run: {check}")
-    assert check["fault_rel_l2"] > LOGITS_LIMIT, check
+    assert check["floor_rel_l2"] < LOGITS_LIMIT < check["fault_rel_l2"], check
     log(f"engine (dense prefill): window after the check: prefill calls "
         f"2-{n_pre} and every decode call, {win_wall:.3f} s wall"
         f"{' under the profiler' if profile else ''}")
@@ -1190,7 +1314,10 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
     return out
 
 
-def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
+def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
+                    moe=False):
+    """Device busy time of the traced window and its kernels; with
+    ``moe``, also the MoE layer's device time between its markers."""
     avg = prof.key_averages()
     events = [(e.key, e.self_device_time_total) for e in avg
               if e.self_device_time_total > 0]
@@ -1213,26 +1340,53 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode):
         f"({b3_us / dev_us:.3f})")
     for k, us in sorted(events, key=lambda e: -e[1])[:15]:
         log(f"profile ({mode}): {us / 1e3:10.2f} ms  {k[:100]}")
-    return dict(profile_busy_us=dev_us, profile_ops=n_ops,
-                profile_b1_us=b1_us,
-                profile_b2_us=b2_us, profile_b3_us=b3_us,
-                profile_events=dict(events))
+    out = dict(profile_busy_us=dev_us, profile_ops=n_ops,
+               profile_b1_us=b1_us,
+               profile_b2_us=b2_us, profile_b3_us=b3_us,
+               profile_events=dict(events))
+    if moe:
+        moe_us, calls = marked_device_us(prof)
+        assert calls > 0, "the trace holds no MoE call between markers"
+        marker_us = sum(us for k, us in events if MARKER in k)
+        log(f"profile ({mode}): MoE layer (router, dispatch, expert GEMMs, "
+            f"combine) {moe_us / 1e3 / n_win:.2f} ms per step over {calls} "
+            f"calls: {moe_us / dev_us:.3f} of busy time (markers "
+            f"{marker_us / 1e3:.2f} ms in all)")
+        out.update(profile_moe_us=moe_us, profile_moe_calls=calls)
+    return out
 
 
-def full_width_params(dev, seed=0):
+def full_width_params(dev, name, n_layers=0, seed=0):
+    """The published config ``name`` (its first ``n_layers`` layers, where
+    given) and seeded weights for it on the card."""
     from repro_torch.configs import get_config
     from repro_torch.weights import init_params
-    cfg = get_config("qwen3-14b")
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in leaves(params))
-    log(f"engine: qwen3-14b d_model {cfg.d_model} heads {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} dh {cfg.head_dim} d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} layers {cfg.n_layers} {cfg.dtype}: "
+    experts = (f" experts {cfg.n_experts} top {cfg.top_k} expert d_ff "
+               f"{cfg.moe_d_ff}" if cfg.n_experts else "")
+    log(f"engine: {name} d_model {cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} dh {cfg.head_dim} d_ff {cfg.d_ff}{experts} vocab "
+        f"{cfg.vocab_size} layers {cfg.n_layers} of "
+        f"{get_config(name).n_layers} {cfg.dtype}: "
         f"{n_params / 1e9:.2f}e9 params, init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
     return cfg, params
+
+
+def free(what):
+    """Collect the engines and weights just dropped and return their
+    memory to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"engine: {what} freed, {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+        f"still allocated")
 
 
 def kernel_entry(kid, case, launches):
@@ -1304,29 +1458,54 @@ def main(argv=None) -> int:
     small_engine_phase(dev)
     # the engine phases serve the same weights; each engine's pools are
     # freed before the next engine allocates its own
-    cfg, params = full_width_params(dev)
+    cfg, params = full_width_params(dev, "qwen3-14b")
     fused = engine_phase(dev, args.profile, cfg, params, "fused")
-    gc.collect()                           # the fused engine and its pools
-    torch.cuda.empty_cache()
-    log(f"engine: fused engine freed, {torch.cuda.memory_allocated() / 1e9:.1f}"
-        f" GB still allocated (the weights)")
+    free("the fused engine and its pools")
     split = engine_phase(dev, args.profile, cfg, params, "split")
     same = sum(a == b for rid, toks in fused["tokens"].items()
                for a, b in zip(toks, split["tokens"][rid]))
     total = sum(len(t) for t in fused["tokens"].values())
     log(f"engine: split vs fused tokens agree at {same} of {total} "
         f"positions (bf16; B2 and B1 round differently)")
-    gc.collect()                           # the split engine and its pools
-    torch.cuda.empty_cache()
+    free("the split engine and its pools")
     dense = dense_prefill_phase(dev, args.profile, cfg, params)
     same_dense = sum(a == b for rid, toks in split["tokens"].items()
                      for a, b in zip(toks, dense["tokens"][rid]))
     log(f"engine: dense-prefill vs split tokens agree at {same_dense} of "
         f"{total} positions (bf16; B3 and B1 round differently)")
     del params
-    torch.cuda.empty_cache()
+    free("qwen3-14b")
 
-    runs = (fused, split, dense)
+    # dbrx: the published widths at 8 of 40 layers (40 layers are 263 GB
+    # in bf16), fused then split on the same weights
+    cfg, params = full_width_params(dev, "dbrx-132b", DBRX_LAYERS)
+    dbrx = {"fused": engine_phase(dev, args.profile, cfg, params, "fused")}
+    free("the fused engine and its pools")
+    dbrx["split"] = engine_phase(dev, args.profile, cfg, params, "split")
+    same_dbrx = sum(a == b for rid, toks in dbrx["fused"]["tokens"].items()
+                    for a, b in zip(toks, dbrx["split"]["tokens"][rid]))
+    log(f"engine: dbrx split vs fused tokens agree at {same_dbrx} of "
+        f"{total} positions (bf16; other kernels, and capacity drops "
+        f"depend on each call's token rows)")
+    del params
+    free("dbrx-132b")
+
+    # the other dense configs of the main path at full width and depth,
+    # and qwen1.5-0.5b again with fp8 KV pools
+    dense_cfgs = {}
+    for name in ("qwen1.5-0.5b", "phi3-mini-3.8b", "minitron-8b"):
+        cfg, params = full_width_params(dev, name)
+        dense_cfgs[name] = engine_phase(dev, args.profile, cfg, params,
+                                        "fused")
+        if name == "qwen1.5-0.5b":
+            free("the engine and its pools")
+            fp8 = dataclasses.replace(cfg, kv_cache_dtype="float8_e4m3fn")
+            dense_cfgs[name + " fp8"] = engine_phase(dev, args.profile, fp8,
+                                                     params, "fused")
+        del params
+        free(name)
+
+    runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values())
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
@@ -1336,9 +1515,11 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "b1_cases": b1, "b2_cases": b2, "b3_cases": b3,
              "engine_fused": fused, "engine_split": split,
-             "engine_dense_prefill": dense,
+             "engine_dense_prefill": dense, "engine_dbrx": dbrx,
+             "engine_dense_configs": dense_cfgs,
              "split_fused_token_agreement": [same, total],
-             "dense_split_token_agreement": [same_dense, total]},
+             "dense_split_token_agreement": [same_dense, total],
+             "dbrx_split_fused_token_agreement": [same_dbrx, total]},
             indent=1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ Two families of attention, as in the reference:
     ``gqa_decode`` / ``gqa_decode_carry`` decode one token with the plain
     ``common.decode_attention``.
 
-MLA waits for a later slice (ROADMAP Queue A, item 10).
+MLA waits for a later slice (ROADMAP Queue A, item 7).
 """
 
 from __future__ import annotations

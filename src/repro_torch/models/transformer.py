@@ -12,9 +12,9 @@ reads like the reference.
 Ported: the paged steps (the fused step, and the split schedule's
 prefill-chunk and decode calls, each over per-device pool shards) and the
 dense oracle model (``prefill`` through the flash-attention kernel,
-``decode_step`` against dense caches, "carry" and "stacked").  Training
-and the traced twins wait for later slices (ROADMAP Queue A, items 8 and
-11).
+``decode_step`` against dense caches, "carry" and "stacked"), each
+over dense MLP or MoE layers.  The traced twins and training wait for
+later slices (ROADMAP Queue A, items 5 and 8).
 """
 
 from __future__ import annotations
@@ -81,10 +81,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve(device)
     groups = []
     for kind, n, _win in layer_groups(cfg):
-        if kind != "gqa_mlp":
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported (ROADMAP Queue A, item "
-                f"2: moe_apply; item 10: other model families)")
+        _check_kind(kind)
         one = attn.gqa_cache_init(cfg, batch, max_seq, dev)
         groups.append({k: v[None].repeat((n,) + (1,) * v.ndim)
                        for k, v in one.items()})
@@ -99,7 +96,7 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
     if cfg.frontend in ("audio_stub", "vision_stub"):
         raise NotImplementedError(
             f"frontend {cfg.frontend!r} is not ported (ROADMAP Queue A, "
-            f"item 10: encoder-only, audio and vision stubs)")
+            f"item 7: encoder-only, audio and vision stubs)")
     return params["embed"][batch["tokens"].long()]
 
 
@@ -130,26 +127,42 @@ def supports_fused_step(cfg: ModelConfig) -> bool:
     return supports_paged_decode(cfg) and supports_paged_prefill(cfg)
 
 
+def _check_kind(kind: str) -> None:
+    if kind not in ("gqa_mlp", "gqa_moe"):
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported (ROADMAP Queue A, item 7: "
+            f"other model families)")
+
+
+def _layer_slice(tree: Params, li: int) -> Params:
+    """Layer ``li`` of a group's stacked parameters (nested dicts, such
+    as the MoE layer's shared experts, included)."""
+    return {k: _layer_slice(v, li) if isinstance(v, dict) else v[li]
+            for k, v in tree.items()}
+
+
 def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                  attend) -> torch.Tensor:
     """Run every layer on ``x``: rmsnorm, ``attend(p_attn, xn, idx)`` (the
     attention output; it writes layer ``idx`` of the pools), residual,
-    rmsnorm, MLP, residual.  Returns the final-normed hidden states."""
+    rmsnorm, the MLP or MoE FFN, residual.  Returns the final-normed
+    hidden states."""
     layer0 = 0
     for gi, (kind, n, _win) in enumerate(layer_groups(cfg)):
-        if kind != "gqa_mlp":
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported (ROADMAP Queue A, "
-                f"item 2: moe_apply; item 10: other model families)")
+        _check_kind(kind)
         gp = params["groups"][gi]
         for li in range(n):
             xn = rmsnorm(x, gp["attn_norm"][li], cfg.norm_eps)
-            x = x + attend({k: v[li] for k, v in gp["attn"].items()}, xn,
-                           layer0 + li)
+            x = x + attend(_layer_slice(gp["attn"], li), xn, layer0 + li)
             if "mlp" in gp:
                 xn = rmsnorm(x, gp["mlp_norm"][li], cfg.norm_eps)
-                x = x + mlp_mod.mlp_apply(
-                    cfg, {k: v[li] for k, v in gp["mlp"].items()}, xn)
+                p_mlp = _layer_slice(gp["mlp"], li)
+                if kind == "gqa_moe":
+                    # the load-balance loss is for training; serving
+                    # drops it, as the reference's serving paths do
+                    x = x + mlp_mod.moe_apply(cfg, p_mlp, xn)[0]
+                else:
+                    x = x + mlp_mod.mlp_apply(cfg, p_mlp, xn)
         layer0 += n
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 

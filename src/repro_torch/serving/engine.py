@@ -120,7 +120,7 @@ class EngineConfig:
     migration_overlap: float = 0.5
     # tracing: off by default (disabled tracer is zero-cost)
     telemetry: bool = False
-    # the per-module probe is ROADMAP Queue A item 8
+    # the per-module probe is ROADMAP Queue A item 5
     trace_modules: bool = False
     trace_capacity: int = 65536     # tracer ring-buffer size (spans)
 
@@ -233,7 +233,7 @@ class InferenceEngine:
         reg.gauge("kv/occupancy", fn=self._pool_occupancy)
         # dense-module roofline efficiency of the modeled step time (the
         # reference's 0.5 analytic prior; its calibration from measured
-        # module spans comes with the probe, ROADMAP Queue A item 8)
+        # module spans comes with the probe, ROADMAP Queue A item 5)
         self._dense_eff = 0.5
         # mapping view over the registry (the reference's metrics keys)
         self.metrics = MetricsView({
@@ -299,16 +299,12 @@ class InferenceEngine:
         if ecfg.trace_modules:
             raise NotImplementedError(
                 "trace_modules=True: the per-module probe is ROADMAP "
-                "Queue A item 8 (telemetry on the port)")
+                "Queue A item 5 (telemetry on the port)")
         if not T.supports_fused_step(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves pure-GQA, full-attention, "
                 f"token-frontend configs; this one needs another model "
-                f"family (ROADMAP Queue A item 10)")
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are ROADMAP Queue A item 2 "
-                f"(moe_apply)")
+                f"family (ROADMAP Queue A item 7)")
 
     # --------------------------------------------------------------- cluster
     # ``cluster`` is a property so the device_id -> Device map the modeled-

@@ -74,10 +74,40 @@ def _dense(gen: torch.Generator, L: int, in_dim: int, out_dim: int,
     return w
 
 
+def _mlp(gen: torch.Generator, cfg: ModelConfig, L: int, ff: int,
+         dt: torch.dtype, dev: torch.device) -> Params:
+    d = cfg.d_model
+    m = {"wi": _dense(gen, L, d, ff, dt, dev),
+         "wo": _dense(gen, L, ff, d, dt, dev)}
+    if cfg.act == "swiglu":
+        m["wg"] = _dense(gen, L, d, ff, dt, dev)
+    return m
+
+
+def _moe(gen: torch.Generator, cfg: ModelConfig, L: int, dt: torch.dtype,
+         dev: torch.device) -> Params:
+    """The reference's ``moe_init`` layout: the router in fp32 whatever
+    the config's dtype, expert weights (L, E, d, ff) and (L, E, ff, d),
+    shared experts as one dense MLP of their combined width."""
+    d, E = cfg.d_model, cfg.n_experts
+    ff = cfg.moe_d_ff or cfg.d_ff
+    # one (in, out) expert matrix drawn at a time: a whole layer in fp32
+    # would not fit beside dbrx's weights
+    experts = lambda i, o: _dense(gen, L * E, i, o, dt, dev).view(L, E, i, o)
+    m = {"router": _dense(gen, L, d, E, torch.float32, dev),
+         "wi": experts(d, ff), "wo": experts(ff, d)}
+    if cfg.act == "swiglu":
+        m["wg"] = experts(d, ff)
+    if cfg.n_shared_experts:
+        m["shared"] = _mlp(gen, cfg, L, ff * cfg.n_shared_experts, dt, dev)
+    return m
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Seeded parameters of the fused serving path's dense GQA stack:
-    truncated-normal fan-in weights, embeddings N(0, 1) * 0.02, unit norm
-    scales and zero qkv biases, as the reference initialises them."""
+    """Seeded parameters of the serving path's GQA stack, dense MLP or
+    MoE layers: truncated-normal fan-in weights, embeddings N(0, 1) *
+    0.02, unit norm scales and zero qkv biases, as the reference
+    initialises them."""
     dev = resolve(device)
     dt = cdtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -85,10 +115,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
     groups = []
     for kind, L, _win in layer_groups(cfg):
-        if kind != "gqa_mlp":
+        if kind not in ("gqa_mlp", "gqa_moe"):
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported (ROADMAP Queue A, "
-                f"item 2: moe_apply; item 10: other model families)")
+                f"item 7: other model families)")
         a = {"wq": _dense(gen, L, d, H * dh, dt, dev),
              "wk": _dense(gen, L, d, Hkv * dh, dt, dev),
              "wv": _dense(gen, L, d, Hkv * dh, dt, dev),
@@ -101,12 +131,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             a["q_norm"] = ones(L, dh)
             a["k_norm"] = ones(L, dh)
         g = {"attn_norm": ones(L, d), "attn": a, "mlp_norm": ones(L, d)}
-        if cfg.d_ff:
-            m = {"wi": _dense(gen, L, d, cfg.d_ff, dt, dev),
-                 "wo": _dense(gen, L, cfg.d_ff, d, dt, dev)}
-            if cfg.act == "swiglu":
-                m["wg"] = _dense(gen, L, d, cfg.d_ff, dt, dev)
-            g["mlp"] = m
+        if kind == "gqa_moe":
+            g["mlp"] = _moe(gen, cfg, L, dt, dev)
+        elif cfg.d_ff:
+            g["mlp"] = _mlp(gen, cfg, L, cfg.d_ff, dt, dev)
         groups.append(g)
     embed = (torch.randn((cfg.vocab_size, d), generator=gen,
                          dtype=torch.float32, device=dev) * 0.02).to(dt)

@@ -404,3 +404,48 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa_ops.flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q, k.transpose(2, 3), v)
+
+
+# ----------------------------------------------------------- MoE FFN
+@pytest.mark.parametrize("shared", [0, 1])
+def test_moe_apply_on_the_card_matches_the_cpu_without_syncing(cuda, shared):
+    """``moe_apply`` on the card against the same call on the CPU in fp32
+    (no TF32; sums in another order: 2e-5): a capped pass (T = 256 > 64)
+    whose 48 identical tokens overload their experts, and 8 tokens of
+    zeros whose tied router logits pick experts 0-3.  The call on the
+    card never waits on the device from the host."""
+    from repro_torch.models import mlp
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="moe", family="moe", n_layers=1, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=512, vocab_size=128,
+                      n_experts=16, top_k=4, moe_d_ff=384,
+                      n_shared_experts=shared, dtype="float32")
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g) / s[-2] ** 0.5
+    p = {"router": rnd(d, E), "wi": rnd(E, d, ff), "wg": rnd(E, d, ff),
+         "wo": rnd(E, ff, d)}
+    if shared:
+        p["shared"] = {"wi": rnd(d, ff), "wg": rnd(d, ff), "wo": rnd(ff, d)}
+    x = torch.randn(8, 32, d, generator=g)
+    x[2, :16] = x[1, :32] = x[0, 0]
+    x[7, 24:] = 0.0
+    want, want_aux = mlp.moe_apply(cfg, p, x)
+    _, _, idx = mlp.route(cfg, p["router"], x.reshape(-1, d))
+    pos = mlp._position_in_expert(idx.reshape(-1), E)
+    assert bool((pos >= mlp.moe_capacity(cfg, 256)).any())      # drops
+    assert bool((idx[-8:] == torch.arange(4)).all())             # ties
+    gp = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.to(cuda)) for k, v in p.items()}
+    gx = x.to(cuda)
+    mlp.moe_apply(cfg, gp, gx)                  # library set-up off the gate
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = mlp.moe_apply(cfg, gp, gx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 2e-5 * (1 + want.abs())).all()), float(err.max())
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)

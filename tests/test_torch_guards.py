@@ -94,7 +94,7 @@ def test_dense_modes_build_with_the_reference_schedule(ecfg):
 
 
 @pytest.mark.parametrize("ecfg, item", [
-    (dict(trace_modules=True, telemetry=True), "item 8"),
+    (dict(trace_modules=True, telemetry=True), "item 5"),
 ])
 def test_unported_engine_modes_raise(ecfg, item):
     cfg = smoke_config("qwen3-14b")
@@ -121,9 +121,12 @@ def test_split_schedule_is_ported_and_unknown_modes_refused():
                         device="cpu")
 
 
-@pytest.mark.parametrize("override", [dict(sliding_window=16),
-                                      dict(n_experts=4, top_k=2),
-                                      dict(frontend="vision_stub")])
+@pytest.mark.parametrize("override", [
+    dict(sliding_window=16),
+    dict(attn_type="mla", q_lora_rank=32, kv_lora_rank=16,
+         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+         head_dim=24),
+    dict(frontend="vision_stub")])
 def test_unported_model_families_raise(override):
     cfg = dataclasses.replace(smoke_config("qwen3-14b"), **override)
     cluster = ClusterSpec.build([("A100", 1), ("3090", 1)])
@@ -140,7 +143,7 @@ def test_config_copies_match_reference():
     assert dataclasses.asdict(get_config("qwen3-14b").profile()) \
         == dataclasses.asdict(jget_config("qwen3-14b").profile())
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("dbrx-132b")
+        get_config("deepseek-v3-671b")
 
 
 def test_cost_and_profiler_copies_match_reference():
