@@ -49,7 +49,22 @@ Phases, in order; any failure exits nonzero:
               limit must catch).  With --profile the steps after the
               checked ones are traced (device activity only) and their busy
               and idle shares printed.
-  6. dense:   the same weights and requests under prefill_mode="dense": one
+  6. probe:   phase 5's two runs again on the same weights and requests
+              under the per-module probe (EngineConfig(trace_modules=True):
+              the traced twins, one device-synchronised span per embed,
+              attention, mlp and lm_head), with phase 5's gates and checks.
+              Exact span counts, the (h, g) annotation on every attention
+              span, the measured calibration loop's outputs (attention
+              gauges of every loaded device, calib per device, the dense
+              roofline efficiency, the measured h2d rate) and the tau(h, g)
+              fit over the live attention spans; each module's median ms
+              and their sum against the call median; the probe's call
+              median against phase 5's; its tokens equal phase 5's at every
+              position when every call packed the same rows (else the
+              agreement is logged, with where the rows part).  Then
+              profile_attention on the card over the reference's 8 x 8
+              grid at dh 128 in bf16 and fp32, with the fit of each.
+  7. dense:   the same weights and requests under prefill_mode="dense": one
               serial dense prefill per request (B3 in every layer), then
               split decode calls through B2.  Exact launch counts, the first
               prefill call's layer-0 B3 launch against the plain version and
@@ -57,13 +72,15 @@ Phases, in order; any failure exits nonzero:
               and a dropped-key-tile re-run).  Dense decode runs only in the
               small phase: it copies every request's dense cache through the
               host on every step.
-  7. dbrx:    phase 5's engine, requests and gates on dbrx-132b (16 experts,
+  8. dbrx:    phase 5's engine, requests and gates on dbrx-132b (16 experts,
               top 4) at its published widths and 8 of its 40 layers, under
-              the fused step and the split schedule; the token-row counts
-              the MoE layer saw are logged, and with --profile the MoE
-              layer's share of device busy time (marker kernels around each
-              call bound it in the trace).
-  8. dense configs: phase 5's fused run on qwen1.5-0.5b, phi3-mini-3.8b and
+              the fused step, phase 6's probe on the fused step (the MoE
+              layer inside the mlp spans), and the split schedule; the
+              token-row counts the MoE layer saw are logged, and with
+              --profile the MoE layer's share of device busy time (marker
+              kernels around each call bound it in the trace; the probe
+              runs are not traced).
+  9. dense configs: phase 5's fused run on qwen1.5-0.5b, phi3-mini-3.8b and
               minitron-8b at full width and depth, and on qwen1.5-0.5b with
               fp8 (e4m3) KV pools.
 
@@ -875,11 +892,12 @@ def span_ms(eng, name, skip=()):
     return durs, statistics.median(durs), sorted(durs)[int(0.9 * len(durs))]
 
 
-def engine_phase(dev, profile, cfg, params, mode, seed=0):
+def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
     """Serve 16 requests through the full-width engine under ``mode``
-    ("fused" or "split") and hold two of its calls against plain re-runs.
-    The kernel launch counts are set to 0 just before the run and read
-    just after it."""
+    ("fused" or "split") and hold two of its calls against plain re-runs;
+    with ``probe``, under the per-module probe (``trace_modules=True``:
+    the paged calls through their traced twins).  The kernel launch
+    counts are set to 0 just before the run and read just after it."""
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.models import transformer as T
@@ -890,7 +908,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         primary_ids=[0], pool_ids=[1],
         engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
                                 prefill_chunk=64, telemetry=True,
-                                step_mode=mode),
+                                trace_modules=probe, step_mode=mode),
         device=dev)
     n_req, new_tokens, prompt_lens = submit_requests(eng, cfg, seed)
 
@@ -898,12 +916,14 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     if mode == "fused":
         wrapped, kernel, step_fn, span = ("_fused_fn", NAMES["B1"],
                                           T.sharded_fused_step, "fused_step")
-        kinds_of, plain = fused_kinds, plain_attention
+        traced, kinds_of, plain = ("sharded_fused_step_traced", fused_kinds,
+                                   plain_attention)
     else:
         wrapped, kernel, step_fn, span = ("_paged_fn", NAMES["B2"],
                                           T.sharded_decode_step,
                                           "paged_decode")
-        kinds_of, plain = decode_kinds, plain_decode
+        traced, kinds_of, plain = ("sharded_decode_step_traced",
+                                   decode_kinds, plain_decode)
     want_kinds = {"fused": {"mixed", "remote"}, "split": {"ragged", "remote"}}
     # hold the first call of each kind against re-runs of the same call
     # with plain attention
@@ -911,8 +931,24 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     moe = MoeWatch(markers=profile)        # the MoE layer's calls, if any
     checked_calls = set()                  # their call times are left out
     check_s = [0.0]                        # wall seconds the checks add
-    call_fn = getattr(eng, wrapped).fn
     kernel_fn = getattr(ops, kernel)
+    if probe:
+        # the engine calls the traced twin from the transformer module
+        traced_fn = getattr(T, traced)
+
+        def call_fn(p, kps, vps, *idx, **kw):
+            return traced_fn(cfg, p, kps, vps, eng.kv.anchor, eng.kv.sink,
+                             *idx, **kw)
+
+        def install(fn):
+            setattr(T, traced, traced_fn if fn is call_fn else (
+                lambda _c, p, kps, vps, _a, _s, *idx, **kw:
+                fn(p, kps, vps, *idx, **kw)))
+    else:
+        call_fn = getattr(eng, wrapped).fn
+
+        def install(fn):
+            getattr(eng, wrapped).fn = fn
 
     def rerun(p, before_k, before_v, idx, attn_fn):
         """The call's logits re-run from the pre-call pools with
@@ -930,12 +966,12 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
     def rel_l2(a, b):
         return float((a - b).norm() / b.norm())
 
-    def checked(p, kps, vps, *idx):
+    def checked(p, kps, vps, *idx, **kw):
         if set(checks) == want_kinds[mode]:
-            return call_fn(p, kps, vps, *idx)
+            return call_fn(p, kps, vps, *idx, **kw)
         kinds = [k for k in kinds_of(idx) if k not in checks]
         if not kinds:
-            return call_fn(p, kps, vps, *idx)
+            return call_fn(p, kps, vps, *idx, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
         before_k = {d: t_.clone() for d, t_ in kps.items()}
@@ -954,7 +990,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
 
         setattr(ops, kernel, capture)
         try:
-            out = call_fn(p, kps, vps, *idx)
+            out = call_fn(p, kps, vps, *idx, **kw)
         finally:
             setattr(ops, kernel, kernel_fn)
         torch.cuda.synchronize()
@@ -994,7 +1030,33 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         check_s[0] += time.perf_counter() - t
         return out
 
-    getattr(eng, wrapped).fn = checked
+    install(checked)
+    # the rows each call packs (its lengths, and its starts or decode
+    # positions), the devices that ever held heads, and per step each
+    # loaded device's measured attention over its analytic time (the
+    # calib before its clamp to [0.25, 4])
+    rows, loaded, ratios = [], set(), collections.defaultdict(list)
+    upload, step = eng._upload, eng.step
+
+    def recorded_upload(host, nbytes=0):
+        rows.append((len(host), host[7].tolist(),
+                     host[8 if len(host) == 13 else 11].tolist()))
+        return upload(host, nbytes)
+
+    def recorded_step():
+        out = step()
+        loaded.update(w.device_id for w in eng.workers if w.heads > 0)
+        if probe and eng.attn_reqs:
+            r0 = next(iter(eng.attn_reqs.values()))
+            snap = eng.snapshot("attn/device/")
+            for w in eng.workers:
+                meas = snap.get(f"attn/device/{w.device_id}")
+                if w.heads > 0 and meas:
+                    ratios[w.device_id].append(meas * w.calib / w.f_time(
+                        r0.group_ratio, r0.head_dim, r0.dtype_bytes))
+        return out
+
+    eng._upload, eng.step = recorded_upload, recorded_step
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tprofile
@@ -1019,7 +1081,8 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
             torch.cuda.synchronize()
             win_wall = time.perf_counter() - tw
         launches = dict(ops.LAUNCHES)      # ... and ends here
-    getattr(eng, wrapped).fn = call_fn     # no cycle keeps the pools alive
+    install(call_fn)                       # no cycle keeps the pools alive
+    del eng._upload, eng.step
     # serving wall time: the run less the checks' own work (pool copies,
     # the layer-0 plain call and the plain re-runs); every step's tokens
     # stay counted
@@ -1032,6 +1095,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
 
     tag = (f"{cfg.name} {cfg.n_layers}L, {cfg.kv_dtype} pools, {mode}"
            if cfg.kv_cache_dtype else f"{cfg.name} {cfg.n_layers}L, {mode}")
+    tag += ", probe" if probe else ""
     moe_T, moe_capped = moe.summary()
     out = dict(config=cfg.name, layers=cfg.n_layers,
                kv_dtype=cfg.kv_dtype, mode=mode, launches=launches,
@@ -1042,6 +1106,8 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
                tokens_per_s_with_prompts=(gen + n_prompt) / wall,
                checks=checks, peak_gb=peak_gb, window_steps=[
                    win_step0 + 1, steps], window_wall_s=win_wall,
+               redispatches=int(eng.metrics["redispatches"]),
+               evictions=int(eng.metrics["evictions"]), rows=rows,
                tokens={r.rid: r.output for r in eng.finished})
     log(f"engine ({tag}): {n_req} requests, prompts {n_prompt} tokens, "
         f"generated {gen}; {steps} steps, {int(eng.metrics['model_calls'])} "
@@ -1142,6 +1208,144 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0):
         out.update(profile_summary(prof, steps - win_step0, win_step0,
                                    steps, win_wall, tag,
                                    moe=bool(moe.calls)))
+    if probe:
+        out.update(probe_summary(eng, tag, mode, checked_calls, loaded,
+                                 ratios))
+    return out
+
+
+# -------------------------------------------------------------- probe phase
+MODULES = ("embed", "attention", "mlp", "lm_head")
+CALLS = ("fused_step", "prefill_chunk", "paged_decode")
+
+
+def probe_summary(eng, tag, mode, checked_calls, loaded, ratios):
+    """The module probe's gates and readings over one engine run: exact
+    span counts, the (h, g) annotation, the calibration loop's outputs
+    (``ratios``: per device, measured over analytic attention time after
+    each step) and the tau(h, g) fit over the live attention spans."""
+    from repro_torch.core.dispatcher import ATTN_SNAPSHOT_PREFIX
+    from repro_torch.core.profiler import fit_attention_model_from_tracer
+    tr, L = eng.tracer, eng.cfg.n_layers
+    calls = int(eng.metrics["model_calls"])
+    counts = {m: tr.count(m) for m in MODULES}
+    assert counts == {"embed": calls, "attention": L * calls,
+                      "mlp": L * calls, "lm_head": calls}, (counts, calls)
+    assert all(sp.args and {"heads", "cache_bytes"} <= set(sp.args)
+               for sp in tr.spans("attention"))
+    # per call: its wall ms and the sum of its module spans (a call's
+    # module spans close before the call's own span)
+    per_module = {m: [] for m in MODULES}
+    per_call = collections.defaultdict(list)
+    acc = 0.0
+    for sp in tr.spans(track="main"):
+        if sp.name in MODULES:
+            per_module[sp.name].append(sp.dur * 1e3)
+            acc += sp.dur * 1e3
+        elif sp.name in CALLS:
+            per_call[sp.name].append((sp.dur * 1e3, acc))
+            acc = 0.0
+    med = {m: statistics.median(v) for m, v in per_module.items()}
+    call_span = "fused_step" if mode == "fused" else "paged_decode"
+    sums = {}
+    for name, pairs in per_call.items():
+        kept = [pc for i, pc in enumerate(pairs)
+                if name != call_span or i not in checked_calls]
+        sums[name] = (statistics.median(c for c, _ in kept),
+                      statistics.median(m for _, m in kept))
+    log(f"probe ({tag}): module ms median embed {med['embed']:.3f}, "
+        f"attention {med['attention']:.3f} (x{L}), mlp {med['mlp']:.3f} "
+        f"(x{L}), lm_head {med['lm_head']:.3f}; " + "; ".join(
+            f"{name}: modules sum median {m:.2f} of call median {c:.2f} ms "
+            f"({m / c:.3f})" for name, (c, m) in sorted(sums.items())))
+    snap = eng.snapshot()
+    gauges = {k: v for k, v in snap.items()
+              if k.startswith(ATTN_SNAPSHOT_PREFIX)}
+    missing = [d for d in sorted(loaded)
+               if f"{ATTN_SNAPSHOT_PREFIX}{d}" not in gauges]
+    assert not missing, f"no measured attention for loaded devices {missing}"
+    gbps = snap["xfer/h2d_gbps"]
+    assert gbps > 0.0 and eng._dense_eff != 0.5, (gbps, eng._dense_eff)
+    fit = fit_attention_model_from_tracer(tr)
+    assert fit is not None, "no tau(h, g) fit from the live spans"
+    model, r2 = fit
+    calib = {w.device_id: w.calib for w in eng.workers}
+    n_attn = len(tr.spans("attention"))
+    log(f"probe ({tag}): tau(h, g) = a*h + b*g + c over {n_attn} live "
+        f"attention spans: a {model.a:.4g} s/head, b {model.b:.4g} s/byte, "
+        f"c {model.c:.4g} s, R^2 {r2:.4f}")
+    log(f"probe ({tag}): loaded devices {sorted(loaded)}; measured "
+        f"attention per device " + ", ".join(
+            f"{k[len(ATTN_SNAPSHOT_PREFIX):]} {v * 1e3:.3f} ms"
+            for k, v in sorted(gauges.items())) +
+        f"; calib per device {calib} (measured / analytic before the "
+        f"clamp, median over steps: " + ", ".join(
+            f"{d} {statistics.median(v):.4g}" for d, v in
+            sorted(ratios.items())) +
+        f"); dense_eff 0.5 -> {eng._dense_eff:.4g}; measured h2d "
+        f"{gbps:.4g} GB/s (EWMA)")
+    return dict(module_ms_median=med, module_counts=counts,
+                call_vs_modules_ms=sums, fit=dict(a=model.a, b=model.b,
+                                                  c=model.c, r2=r2),
+                attn_gauges=gauges, calib=calib, dense_eff=eng._dense_eff,
+                calib_unclamped_median={d: statistics.median(v)
+                                        for d, v in ratios.items()},
+                h2d_gbps=gbps, loaded=sorted(loaded))
+
+
+def probe_phase(dev, cfg, params, mode, base):
+    """Phase 5's run (``base``) again under the per-module probe, on the
+    same weights and requests; its tokens against ``base``'s."""
+    run = engine_phase(dev, False, cfg, params, mode, probe=True)
+    tag = f"{cfg.name} {cfg.n_layers}L, {mode}, probe"
+    key = "step_ms_median" if mode == "fused" else "decode_ms_median"
+    log(f"probe ({tag}): {key.replace('_', ' ')} {run[key]:.2f} against "
+        f"{base[key]:.2f} untraced ({run[key] / base[key]:.3f}x); "
+        f"redispatches {run['redispatches']} (untraced "
+        f"{base['redispatches']}), evictions {run['evictions']} (untraced "
+        f"{base['evictions']})")
+    same = sum(a == b for rid, toks in base["tokens"].items()
+               for a, b in zip(toks, run["tokens"][rid]))
+    total = sum(len(t) for t in base["tokens"].values())
+    run["untraced_token_agreement"] = [same, total]
+    if run["rows"] == base["rows"]:
+        log(f"probe ({tag}): every one of the {len(run['rows'])} calls "
+            f"packed the untraced run's rows; tokens agree at {same} of "
+            f"{total} positions")
+        assert same == total, "the probe changed the tokens"
+    else:
+        first = next((i for i, (a, b) in enumerate(zip(base["rows"],
+                                                       run["rows"]))
+                      if a != b), min(len(base["rows"]), len(run["rows"])))
+        log(f"probe ({tag}): the rows packed differ from call {first} on "
+            f"({len(run['rows'])} calls, untraced {len(base['rows'])}; "
+            f"evictions {run['evictions']} vs {base['evictions']}): tokens "
+            f"agree at {same} of {total} positions")
+    return run
+
+
+def profile_attention_phase(dev):
+    """``profile_attention`` on the card over the reference's default
+    grid (8 head counts x 8 contexts, batch 4, 3 repeats) at dh 128, in
+    bf16 and fp32, and the tau(h, g) fit over each."""
+    from repro_torch.core.profiler import (fit_attention_model,
+                                           profile_attention)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        t0 = time.perf_counter()
+        s = profile_attention(head_dim=128, dtype=dtype, device=dev)
+        wall = time.perf_counter() - t0
+        assert len(s) == 64 and all(t > 0.0 for _, _, t in s), s
+        model, r2 = fit_attention_model(s)
+        ms = [t * 1e3 for _, _, t in s]
+        log(f"profile_attention ({dtype_name(dtype)}, dh 128, 8 x 8 grid, "
+            f"batch 4, 3 repeats): {min(ms):.4f}-{max(ms):.4f} ms per call "
+            f"over {s[0][1] / 1e6:.3f}-{s[-1][1] / 1e6:.1f} MB of K/V; "
+            f"tau = a*h + b*g + c with a {model.a:.4g} s/head, b "
+            f"{model.b:.4g} s/byte, c {model.c:.4g} s, R^2 {r2:.4f} "
+            f"({wall:.1f} s)")
+        out[dtype_name(dtype)] = dict(a=model.a, b=model.b, c=model.c,
+                                      r2=r2, samples=s)
     return out
 
 
@@ -1468,6 +1672,11 @@ def main(argv=None) -> int:
     log(f"engine: split vs fused tokens agree at {same} of {total} "
         f"positions (bf16; B2 and B1 round differently)")
     free("the split engine and its pools")
+    probe = {"fused": probe_phase(dev, cfg, params, "fused", fused)}
+    free("the probed fused engine and its pools")
+    probe["split"] = probe_phase(dev, cfg, params, "split", split)
+    free("the probed split engine and its pools")
+    tau = profile_attention_phase(dev)
     dense = dense_prefill_phase(dev, args.profile, cfg, params)
     same_dense = sum(a == b for rid, toks in split["tokens"].items()
                      for a, b in zip(toks, dense["tokens"][rid]))
@@ -1481,6 +1690,10 @@ def main(argv=None) -> int:
     cfg, params = full_width_params(dev, "dbrx-132b", DBRX_LAYERS)
     dbrx = {"fused": engine_phase(dev, args.profile, cfg, params, "fused")}
     free("the fused engine and its pools")
+    # the probe's mlp spans around MoE layers
+    probe["dbrx fused"] = probe_phase(dev, cfg, params, "fused",
+                                      dbrx["fused"])
+    free("the probed fused engine and its pools")
     dbrx["split"] = engine_phase(dev, args.profile, cfg, params, "split")
     same_dbrx = sum(a == b for rid, toks in dbrx["fused"]["tokens"].items()
                     for a, b in zip(toks, dbrx["split"]["tokens"][rid]))
@@ -1505,7 +1718,8 @@ def main(argv=None) -> int:
         del params
         free(name)
 
-    runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values())
+    runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values(),
+            *probe.values())
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
@@ -1516,7 +1730,8 @@ def main(argv=None) -> int:
             {"card": card, "b1_cases": b1, "b2_cases": b2, "b3_cases": b3,
              "engine_fused": fused, "engine_split": split,
              "engine_dense_prefill": dense, "engine_dbrx": dbrx,
-             "engine_dense_configs": dense_cfgs,
+             "engine_dense_configs": dense_cfgs, "engine_probe": probe,
+             "profile_attention": tau,
              "split_fused_token_agreement": [same, total],
              "dense_split_token_agreement": [same_dense, total],
              "dbrx_split_fused_token_agreement": [same_dbrx, total]},

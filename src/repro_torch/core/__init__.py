@@ -3,7 +3,7 @@
 Modules:
   cluster      — heterogeneous device inventory (ClusterSpec / DeviceClass)
   costmodel    — the ModelProfile and dense-FLOP count of the §4.1 model
-  profiler     — Eq (3)/(4) analytic linear models (§5.1)
+  profiler     — Eq (3)/(4) linear models + fitting / measurement (§5.1)
   dispatcher   — online min-max LP head dispatching + re-dispatching (§5)
   hauler       — head-granular cache migration planning (§6)
 
@@ -23,4 +23,6 @@ from repro_torch.core.hauler import (MigrationScheduler, MigrationTask,
                                      migration_bytes, plan_migration)
 from repro_torch.core.profiler import (AttentionModel, TransferModel,
                                        analytic_attention_model,
-                                       analytic_transfer_model)
+                                       analytic_transfer_model,
+                                       fit_attention_model,
+                                       fit_transfer_model, profile_attention)

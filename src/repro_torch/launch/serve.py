@@ -3,6 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --requests 8 --rate 2.0
 
+  # the per-module probe on the CPU, its Chrome trace checked after
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --trace-modules --trace-out trace.json
+  PYTHONPATH=src python -m repro_torch.telemetry.export trace.json
+
 Weights are the port's seeded random initialisation (``--seed``).  The
 model is the full published config unless ``--smoke`` asks for its
 reduced sibling.  Runs on ``--device cuda`` unless told otherwise; the
@@ -35,17 +40,23 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="enable telemetry and write a Chrome trace_event "
                          "JSON (chrome://tracing / ui.perfetto.dev)")
+    ap.add_argument("--trace-modules", action="store_true",
+                    help="also run the per-module probe (device-"
+                         "synchronised attention/MLP spans feeding the "
+                         "dispatcher/hauler/cost-model calibration)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = init_params(cfg, args.seed, device=args.device)
 
     cluster = ClusterSpec.build([("A100", 1), ("3090", 2), ("P100", 1)])
+    telemetry = bool(args.trace_out) or args.trace_modules
     eng = InferenceEngine(cfg, params, cluster, primary_ids=[0],
                           pool_ids=[1, 2, 3],
                           engine_cfg=EngineConfig(
                               max_batch=16, max_seq=128,
-                              telemetry=bool(args.trace_out)),
+                              telemetry=telemetry,
+                              trace_modules=args.trace_modules),
                           device=args.device)
 
     rng = np.random.default_rng(args.seed)

@@ -13,8 +13,12 @@ Ported: the paged steps (the fused step, and the split schedule's
 prefill-chunk and decode calls, each over per-device pool shards) and the
 dense oracle model (``prefill`` through the flash-attention kernel,
 ``decode_step`` against dense caches, "carry" and "stacked"), each
-over dense MLP or MoE layers.  The traced twins and training wait for
-later slices (ROADMAP Queue A, items 5 and 8).
+over dense MLP or MoE layers.  The paged steps' traced twins
+(``*_traced``, the engine's per-module probe) run the same layer loop
+with a tracer: one device-synchronised span per module (``embed``,
+``attention`` per layer, ``mlp`` per layer, ``lm_head`` with the final
+rmsnorm), so the untraced calls run the same operations in the same
+order.  Training waits for a later slice (ROADMAP Queue A, item 8).
 """
 
 from __future__ import annotations
@@ -28,10 +32,13 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.device import resolve
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.config import ModelConfig
+from repro_torch.telemetry.tracer import Tracer
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 Pools = Dict[int, torch.Tensor]
+# the untraced calls' tracer: its spans and syncs are no-ops
+_UNTRACED = Tracer(enabled=False)
 
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
@@ -141,30 +148,64 @@ def _layer_slice(tree: Params, li: int) -> Params:
             for k, v in tree.items()}
 
 
+def _embed(params: Params, tokens: torch.Tensor,
+           tracer: Tracer = _UNTRACED) -> torch.Tensor:
+    """The token embedding lookup, in the ``embed`` span."""
+    with tracer.span("embed"):
+        x = params["embed"][tokens.long()]
+        tracer.sync(x)
+    return x
+
+
 def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                 attend) -> torch.Tensor:
+                 attend, tracer: Tracer = _UNTRACED,
+                 span_args=None) -> torch.Tensor:
     """Run every layer on ``x``: rmsnorm, ``attend(p_attn, xn, idx)`` (the
     attention output; it writes layer ``idx`` of the pools), residual,
-    rmsnorm, the MLP or MoE FFN, residual.  Returns the final-normed
-    hidden states."""
+    rmsnorm, the MLP or MoE FFN, residual.  With an enabled ``tracer``
+    the attention module (its span carrying ``span_args``) and the FFN
+    each run in a span that closes after the device finished them.
+    Returns the hidden states before the final rmsnorm."""
     layer0 = 0
     for gi, (kind, n, _win) in enumerate(layer_groups(cfg)):
         _check_kind(kind)
         gp = params["groups"][gi]
         for li in range(n):
             xn = rmsnorm(x, gp["attn_norm"][li], cfg.norm_eps)
-            x = x + attend(_layer_slice(gp["attn"], li), xn, layer0 + li)
+            p_attn = _layer_slice(gp["attn"], li)
+            with tracer.span("attention", args=span_args):
+                a_out = attend(p_attn, xn, layer0 + li)
+                tracer.sync(a_out)
+            x = x + a_out
             if "mlp" in gp:
                 xn = rmsnorm(x, gp["mlp_norm"][li], cfg.norm_eps)
                 p_mlp = _layer_slice(gp["mlp"], li)
-                if kind == "gqa_moe":
-                    # the load-balance loss is for training; serving
-                    # drops it, as the reference's serving paths do
-                    x = x + mlp_mod.moe_apply(cfg, p_mlp, xn)[0]
-                else:
-                    x = x + mlp_mod.mlp_apply(cfg, p_mlp, xn)
+                with tracer.span("mlp"):
+                    if kind == "gqa_moe":
+                        # the load-balance loss is for training; serving
+                        # drops it, as the reference's serving paths do
+                        m_out = mlp_mod.moe_apply(cfg, p_mlp, xn)[0]
+                    else:
+                        m_out = mlp_mod.mlp_apply(cfg, p_mlp, xn)
+                    tracer.sync(m_out)
+                x = x + m_out
         layer0 += n
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
+            rows: torch.Tensor = None,
+            tracer: Tracer = _UNTRACED) -> torch.Tensor:
+    """The final rmsnorm, then fp32 logits of one position per row: in-row
+    index ``rows`` (B,), or position 0 when ``rows`` is None; in the
+    ``lm_head`` span."""
+    with tracer.span("lm_head"):
+        h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        last = h[:, 0] if rows is None else \
+            h[torch.arange(h.shape[0], device=h.device), rows.long()]
+        logits = (last @ _lm_head(cfg, params)).float()
+        tracer.sync(logits)
+    return logits
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
@@ -192,8 +233,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
     h = _layer_stack(cfg, params, x, attend)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    last = h[torch.arange(B, device=h.device), lengths.long() - 1]
-    logits = (last @ _lm_head(cfg, params)).float()
+    logits = _logits(cfg, params, h, lengths - 1)
     return logits, {"groups": caches, "pos": lengths.to(torch.int32)}
 
 
@@ -225,8 +265,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         stacked[gi]["v"].append(c["v"])
         return out
 
-    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
-    logits = (h[:, 0] @ _lm_head(cfg, params)).float()
+    h = _layer_stack(cfg, params, _embed(params, tokens), attend)
+    logits = _logits(cfg, params, h)
     if not carry:
         groups = [{k: torch.stack(v) for k, v in g.items()} for g in stacked]
     return logits, {"groups": groups, "pos": pos + 1}
@@ -237,7 +277,8 @@ def _paged_chunk_forward(cfg: ModelConfig, params: Params,
                          block_tables: torch.Tensor, lengths: torch.Tensor,
                          starts: torch.Tensor, write_slots: torch.Tensor,
                          write_offs: torch.Tensor, tokens: torch.Tensor,
-                         last_idx: torch.Tensor
+                         last_idx: torch.Tensor,
+                         tracer: Tracer = _UNTRACED, span_args=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Embed a (B, C) token block, and per layer: rmsnorm, attention
     (K/V scattered into the pools, paged chunk kernel), MLP.  Returns
@@ -251,17 +292,34 @@ def _paged_chunk_forward(cfg: ModelConfig, params: Params,
             cfg, p_attn, xn, kpool, vpool, idx, block_tables, lengths,
             starts, write_slots, write_offs, positions)[0]
 
-    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
-    last = h[torch.arange(h.shape[0], device=h.device), last_idx.long()]
-    logits = (last @ _lm_head(cfg, params)).float()
-    return logits, kpool, vpool
+    h = _layer_stack(cfg, params, _embed(params, tokens, tracer), attend,
+                     tracer, span_args)
+    return _logits(cfg, params, h, last_idx, tracer), kpool, vpool
+
+
+def _paged_chunk_forward_traced(cfg: ModelConfig, params: Params,
+                                kpool: torch.Tensor, vpool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                lengths: torch.Tensor, starts: torch.Tensor,
+                                write_slots: torch.Tensor,
+                                write_offs: torch.Tensor,
+                                tokens: torch.Tensor, last_idx: torch.Tensor,
+                                tracer: Tracer, span_args=None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Instrumented twin of ``_paged_chunk_forward``: the same operations,
+    with one device-synchronised span per module."""
+    return _paged_chunk_forward(cfg, params, kpool, vpool, block_tables,
+                                lengths, starts, write_slots, write_offs,
+                                tokens, last_idx, tracer, span_args)
 
 
 def paged_decode_step(cfg: ModelConfig, params: Params,
                       kpool: torch.Tensor, vpool: torch.Tensor,
                       block_tables: torch.Tensor, lengths: torch.Tensor,
                       write_slot: torch.Tensor, write_off: torch.Tensor,
-                      tokens: torch.Tensor, pos: torch.Tensor
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      tracer: Tracer = _UNTRACED, span_args=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step against the paged KV pools: per layer the new
     token's K/V is written in place (one (B*Hkv)-element scatter) and the
@@ -277,9 +335,29 @@ def paged_decode_step(cfg: ModelConfig, params: Params,
             cfg, p_attn, xn, kpool, vpool, idx, block_tables, lengths,
             write_slot, write_off, pos)[0]
 
-    h = _layer_stack(cfg, params, params["embed"][tokens.long()], attend)
-    logits = (h[:, 0] @ _lm_head(cfg, params)).float()
-    return logits, kpool, vpool
+    h = _layer_stack(cfg, params, _embed(params, tokens, tracer), attend,
+                     tracer, span_args)
+    return _logits(cfg, params, h, tracer=tracer), kpool, vpool
+
+
+def paged_decode_step_traced(cfg: ModelConfig, params: Params,
+                             kpool: torch.Tensor, vpool: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             lengths: torch.Tensor, write_slot: torch.Tensor,
+                             write_off: torch.Tensor, tokens: torch.Tensor,
+                             pos: torch.Tensor, tracer: Tracer,
+                             span_args=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Instrumented twin of ``paged_decode_step``: the same operations,
+    with one device-synchronised span per module (``embed``, per layer
+    ``attention`` and ``mlp``, ``lm_head``), so the durations are module
+    latencies.  The engine runs it when its module probe is on; the
+    attention spans carry ``span_args`` (``{"heads": h, "cache_bytes":
+    g}``), from which the profiler fits tau(h, g)."""
+    return paged_decode_step(cfg, params, kpool, vpool, block_tables,
+                             lengths, write_slot, write_off, tokens, pos,
+                             tracer, span_args)
 
 
 def paged_prefill_chunk(cfg: ModelConfig, params: Params,
@@ -303,6 +381,26 @@ def paged_prefill_chunk(cfg: ModelConfig, params: Params,
     return _paged_chunk_forward(cfg, params, kpool, vpool, block_tables,
                                 lengths, starts, write_slots, write_offs,
                                 tokens, last_idx)
+
+
+def paged_prefill_chunk_traced(cfg: ModelConfig, params: Params,
+                               kpool: torch.Tensor, vpool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor, starts: torch.Tensor,
+                               write_slots: torch.Tensor,
+                               write_offs: torch.Tensor,
+                               tokens: torch.Tensor, last_idx: torch.Tensor,
+                               tracer: Tracer, span_args=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Instrumented twin of ``paged_prefill_chunk`` (see
+    ``paged_decode_step_traced``)."""
+    assert supports_paged_prefill(cfg), \
+        "config not supported by paged prefill"
+    return _paged_chunk_forward_traced(cfg, params, kpool, vpool,
+                                       block_tables, lengths, starts,
+                                       write_slots, write_offs, tokens,
+                                       last_idx, tracer, span_args)
 
 
 def paged_fused_step(cfg: ModelConfig, params: Params,
@@ -329,6 +427,26 @@ def paged_fused_step(cfg: ModelConfig, params: Params,
     return _paged_chunk_forward(cfg, params, kpool, vpool, block_tables,
                                 lengths, starts, write_slots, write_offs,
                                 tokens, last_idx)
+
+
+def paged_fused_step_traced(cfg: ModelConfig, params: Params,
+                            kpool: torch.Tensor, vpool: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            lengths: torch.Tensor, starts: torch.Tensor,
+                            write_slots: torch.Tensor,
+                            write_offs: torch.Tensor, tokens: torch.Tensor,
+                            last_idx: torch.Tensor, tracer: Tracer,
+                            span_args=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Instrumented twin of ``paged_fused_step`` (see
+    ``paged_decode_step_traced``); the engine adds proportional
+    ``fused/<phase>`` spans for the call's decode and prefill shares."""
+    assert supports_fused_step(cfg), "config not supported by fused step"
+    return _paged_chunk_forward_traced(cfg, params, kpool, vpool,
+                                       block_tables, lengths, starts,
+                                       write_slots, write_offs, tokens,
+                                       last_idx, tracer, span_args)
 
 
 def _pool_exchange_in(kpools: Pools, vpools: Pools, anchor: int,
@@ -442,3 +560,49 @@ def sharded_prefill_chunk(cfg: ModelConfig, params: Params,
         lambda ak, av: paged_prefill_chunk(
             cfg, params, ak, av, block_tables, lengths, starts, write_slots,
             write_offs, tokens, last_idx)[0])
+
+
+def sharded_fused_step_traced(cfg: ModelConfig, params: Params,
+                              kpools: Pools, vpools: Pools, anchor: int,
+                              anchor_sink: int, g_dev, g_src, g_dst, w_dev,
+                              w_src, w_dst, block_tables, lengths, starts,
+                              write_slots, write_offs, tokens, last_idx,
+                              tracer: Tracer, span_args=None):
+    """Instrumented twin of ``sharded_fused_step`` (the exchange around
+    the traced single-pool body)."""
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_fused_step_traced(
+            cfg, params, ak, av, block_tables, lengths, starts, write_slots,
+            write_offs, tokens, last_idx, tracer, span_args)[0])
+
+
+def sharded_decode_step_traced(cfg: ModelConfig, params: Params,
+                               kpools: Pools, vpools: Pools, anchor: int,
+                               anchor_sink: int, g_dev, g_src, g_dst, w_dev,
+                               w_src, w_dst, block_tables, lengths,
+                               write_slot, write_off, tokens, pos,
+                               tracer: Tracer, span_args=None):
+    """Instrumented twin of ``sharded_decode_step``."""
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_decode_step_traced(
+            cfg, params, ak, av, block_tables, lengths, write_slot,
+            write_off, tokens, pos, tracer, span_args)[0])
+
+
+def sharded_prefill_chunk_traced(cfg: ModelConfig, params: Params,
+                                 kpools: Pools, vpools: Pools, anchor: int,
+                                 anchor_sink: int, g_dev, g_src, g_dst,
+                                 w_dev, w_src, w_dst, block_tables, lengths,
+                                 starts, write_slots, write_offs, tokens,
+                                 last_idx, tracer: Tracer, span_args=None):
+    """Instrumented twin of ``sharded_prefill_chunk``."""
+    return _on_anchor(
+        kpools, vpools, anchor, anchor_sink,
+        (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
+        lambda ak, av: paged_prefill_chunk_traced(
+            cfg, params, ak, av, block_tables, lengths, starts, write_slots,
+            write_offs, tokens, last_idx, tracer, span_args)[0])

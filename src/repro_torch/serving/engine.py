@@ -32,8 +32,21 @@ The cluster's device classes are simulated: every pool shard lives on the
 one torch ``device`` the engine runs on.  Shapes are pow2-bucketed as in
 the reference, so each model call sees at most ``fused_bucket_count()``
 (``bucket_count()`` and ``prefill_bucket_count()`` for the split calls)
-distinct shapes.  Every mode combination is ported; the per-module probe
-raises ``NotImplementedError`` naming its ROADMAP item.
+distinct shapes.  Every mode combination is ported.
+
+Telemetry, as in the reference: with ``EngineConfig.telemetry`` a
+:class:`Tracer` records nested admit / fused_step / prefill_chunk /
+paged_decode / rebalance spans (plus modeled module spans on a
+simulated-clock track).  ``trace_modules`` (which needs ``telemetry``)
+runs the per-module probe: the paged calls go through their traced
+twins (``transformer.sharded_*_traced``), whose device-synchronised
+embed / attention / mlp / lm_head spans close the measured calibration
+loop — the attention time, apportioned over the loaded devices, feeds
+the ``attn/device/<id>`` gauges that ``maybe_rebalance`` recalibrates
+the dispatcher from; the dense-module time recalibrates the roofline
+efficiency of the simulated clock; the timed host-to-device upload
+feeds ``xfer/h2d_gbps``, which the hauler's link model follows.  The
+dense modes' calls have no traced twin and run untraced.
 """
 
 from __future__ import annotations
@@ -48,9 +61,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster import ClusterSpec, Device
-from repro_torch.core.costmodel import dense_flops_layer
-from repro_torch.core.dispatcher import (AttnRequest, WorkerState,
-                                         apply_placement,
+from repro_torch.core.costmodel import (calibrate_efficiency,
+                                        dense_flops_layer)
+from repro_torch.core.dispatcher import (ATTN_SNAPSHOT_PREFIX, AttnRequest,
+                                         WorkerState, apply_placement,
                                          current_attention_time, dispatch_lp,
                                          grow_context,
                                          handle_memory_exhaustion,
@@ -120,7 +134,9 @@ class EngineConfig:
     migration_overlap: float = 0.5
     # tracing: off by default (disabled tracer is zero-cost)
     telemetry: bool = False
-    # the per-module probe is ROADMAP Queue A item 5
+    # run the per-module probe (device-synchronised embed / attention /
+    # mlp / lm_head spans whose durations feed the dispatcher, hauler and
+    # cost-model calibration); needs telemetry
     trace_modules: bool = False
     trace_capacity: int = 65536     # tracer ring-buffer size (spans)
 
@@ -196,6 +212,8 @@ class InferenceEngine:
         self.registry = MetricsRegistry()
         self.tracer = Tracer(enabled=engine_cfg.telemetry,
                              capacity=engine_cfg.trace_capacity)
+        self._trace_modules = (engine_cfg.telemetry
+                               and engine_cfg.trace_modules)
         reg = self.registry
         self._c_migr = reg.counter("migrated_bytes")
         # device-to-device traffic of the sharded pools: re-dispatch
@@ -222,6 +240,9 @@ class InferenceEngine:
         self._h_ttft = reg.histogram("ttft_s")
         self._h_tpot = reg.histogram("tpot_s")
         self._h_step = reg.histogram("step_latency_s")
+        self._h_attn_mod = reg.histogram("attn_module_s")
+        self._h_dense_mod = reg.histogram("dense_module_s")
+        self._g_h2d_gbps = reg.gauge("xfer/h2d_gbps")
         # KV-pool occupancy / per-device memory gauges: callable-backed —
         # evaluated at snapshot()/read time, zero cost per step
         for did, part in self.kv.partitions.items():
@@ -231,9 +252,10 @@ class InferenceEngine:
                       fn=(lambda p=part, kv=self.kv:
                           float(p.used * kv.bytes_per_slot())))
         reg.gauge("kv/occupancy", fn=self._pool_occupancy)
-        # dense-module roofline efficiency of the modeled step time (the
-        # reference's 0.5 analytic prior; its calibration from measured
-        # module spans comes with the probe, ROADMAP Queue A item 5)
+        # whether any measured module-span attribution has landed yet
+        self._measured_attn = False
+        # calibrated dense-module roofline efficiency (cost model); the
+        # 0.5 analytic prior is EWMA-updated from measured dense spans
         self._dense_eff = 0.5
         # mapping view over the registry (the reference's metrics keys)
         self.metrics = MetricsView({
@@ -296,10 +318,6 @@ class InferenceEngine:
         if ecfg.step_mode not in ("fused", "split"):
             raise ValueError(f"step_mode={ecfg.step_mode!r}: 'fused' or "
                              f"'split'")
-        if ecfg.trace_modules:
-            raise NotImplementedError(
-                "trace_modules=True: the per-module probe is ROADMAP "
-                "Queue A item 5 (telemetry on the port)")
         if not T.supports_fused_step(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves pure-GQA, full-attention, "
@@ -329,10 +347,82 @@ class InferenceEngine:
         """Typed metrics snapshot (see MetricsRegistry.snapshot)."""
         return self.registry.snapshot(prefix)
 
-    def _upload(self, host: Tuple[np.ndarray, ...]
+    def _module_span_args(self, reqs: List[Request]) -> Dict[str, float]:
+        """(h, g) annotation for attention spans: resident query heads and
+        resident KV bytes — the profiler's fit grid, from live traffic."""
+        cfg = self.cfg
+        ctx = sum(r.ctx_len for r in reqs)
+        kv_bytes = (ctx * 2 * cfg.n_kv_heads * cfg.head_dim
+                    * cfg.n_layers * self._kv_itemsize)
+        return {"heads": float(len(reqs) * cfg.n_heads),
+                "cache_bytes": float(kv_bytes)}
+
+    def _attribute_module_times(self, attn_s: float, dense_s: float
+                                ) -> None:
+        """Fold one probe call's measured module durations into telemetry:
+        module histograms, per-device measured-attention gauges (analytic
+        share of each device, rescaled by the measured aggregate, EWMA-
+        smoothed), and the calibrated dense roofline efficiency."""
+        if attn_s > 0.0:
+            self._h_attn_mod.observe(attn_s)
+            loaded = [w for w in self.workers
+                      if w.alive and (w.heads > 0 or w.cache_bytes > 0)]
+            if loaded and self.attn_reqs:
+                r0 = next(iter(self.attn_reqs.values()))
+                f = {w.device_id: w.f_time(r0.group_ratio, r0.head_dim,
+                                           r0.dtype_bytes) for w in loaded}
+                total_f = sum(f.values())
+                if total_f > 0.0:
+                    for did, fi in f.items():
+                        est = attn_s * fi / total_f
+                        self.registry.gauge(
+                            f"{ATTN_SNAPSHOT_PREFIX}{did}").ewma(est)
+                    self._measured_attn = True
+        if dense_s > 0.0:
+            self._h_dense_mod.observe(dense_s)
+            self._dense_eff = calibrate_efficiency(
+                self._dense_eff,
+                self._dense_roofline_s(max(1, len(self.running))), dense_s)
+
+    def _probe_totals(self) -> Tuple[float, float]:
+        """(attention, dense-module) aggregate span seconds so far — the
+        per-call delta isolates one probe call's module durations."""
+        t = self.tracer
+        return (t.total("attention"),
+                t.total("embed") + t.total("mlp") + t.total("lm_head"))
+
+    def _probe_call(self, traced_fn, dev, reqs: List[Request]):
+        """One paged model call through its traced twin ``traced_fn``
+        (``transformer.sharded_*_traced``) on the pools, with the
+        attention spans annotated for ``reqs``; folds the call's module
+        times into telemetry.  Returns the logits."""
+        a0, d0 = self._probe_totals()
+        kps, vps = self.kv.pools()
+        logits, kps, vps = traced_fn(
+            self.cfg, self.params, kps, vps, self.kv.anchor, self.kv.sink,
+            *dev, tracer=self.tracer,
+            span_args=self._module_span_args(reqs))
+        self.kv.install_pools(kps, vps)
+        a1, d1 = self._probe_totals()
+        self._attribute_module_times(a1 - a0, d1 - d0)
+        return logits
+
+    def _upload(self, host: Tuple[np.ndarray, ...], nbytes: int = 0
                 ) -> Tuple[torch.Tensor, ...]:
-        """Host arrays -> device tensors (same dtypes, same bytes)."""
-        return tuple(torch.from_numpy(a).to(self.device) for a in host)
+        """Host arrays -> device tensors (same dtypes, same bytes).  When
+        the module probe is on, an upload of ``nbytes`` > 0 (the paged
+        calls') is timed to its end on the device and folded into the
+        measured h2d bandwidth gauge the hauler's link model follows."""
+        if not self._trace_modules or nbytes <= 0:
+            return tuple(torch.from_numpy(a).to(self.device) for a in host)
+        t0 = time.perf_counter()
+        dev = tuple(torch.from_numpy(a).to(self.device) for a in host)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        if dt > 0.0:
+            self._g_h2d_gbps.ewma(nbytes / dt / 1e9)
+        return dev
 
     # -------------------------------------------------------- shape bounds
     def _max_pages(self) -> int:
@@ -550,13 +640,18 @@ class InferenceEngine:
         host = exch + (tables, lengths, starts, wslots, woffs, toks,
                        last_idx)
         h2d = sum(a.nbytes for a in host)
-        dev = self._upload(host)
+        dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
         with self.tracer.span("prefill_chunk",
                               args={"batch": Bp, "chunk": Cp, "pages": Pp}):
-            kps, vps = self.kv.pools()
-            logits, kps, vps = self._chunk_fn(self.params, kps, vps, *dev)
-            self.kv.install_pools(kps, vps)
+            if self._trace_modules:
+                logits = self._probe_call(T.sharded_prefill_chunk_traced,
+                                          dev, [r for r, _, _ in spans])
+            else:
+                kps, vps = self.kv.pools()
+                logits, kps, vps = self._chunk_fn(self.params, kps, vps,
+                                                  *dev)
+                self.kv.install_pools(kps, vps)
             self.tracer.sync(logits)
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
@@ -626,13 +721,18 @@ class InferenceEngine:
         self._decode_shapes.add((Bp, Pp, Gp))
         host = exch + (tables, lengths, wslot, woff, toks, pos)
         h2d = sum(a.nbytes for a in host)
-        dev = self._upload(host)
+        dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
         with self.tracer.span("paged_decode",
                               args={"batch": Bp, "pages": Pp}):
-            kps, vps = self.kv.pools()
-            logits, kps, vps = self._paged_fn(self.params, kps, vps, *dev)
-            self.kv.install_pools(kps, vps)
+            if self._trace_modules:
+                logits = self._probe_call(T.sharded_decode_step_traced, dev,
+                                          active)
+            else:
+                kps, vps = self.kv.pools()
+                logits, kps, vps = self._paged_fn(self.params, kps, vps,
+                                                  *dev)
+                self.kv.install_pools(kps, vps)
             self.tracer.sync(logits)
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
@@ -771,22 +871,29 @@ class InferenceEngine:
         host = exch + (tables, lengths, starts, wslots, woffs, toks,
                        last_idx)
         h2d = sum(a.nbytes for a in host)
-        dev = self._upload(host)
+        dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
         tr = self.tracer
         n_pre = sum(n for _, _, n in spans)
         # timing the step for the autotuner costs a device sync, so only
-        # pay it when an SLO is configured
-        time_it = self.ecfg.tpot_slo_s > 0.0
+        # pay it when an SLO is configured (the probe already syncs, and
+        # its synchronised modules are not the step the SLO is about)
+        time_it = self.ecfg.tpot_slo_s > 0.0 and not self._trace_modules
         rc0 = self._c_recompiles.value
         with tr.span("fused_step", args={"batch": Bp, "chunk": Cp,
                                          "pages": Pp,
                                          "decode_rows": len(dec),
                                          "prefill_tokens": n_pre}):
             t0 = time.perf_counter() if (tr.enabled or time_it) else 0.0
-            kps, vps = self.kv.pools()
-            logits, kps, vps = self._fused_fn(self.params, kps, vps, *dev)
-            self.kv.install_pools(kps, vps)
+            if self._trace_modules:
+                logits = self._probe_call(
+                    T.sharded_fused_step_traced, dev,
+                    dec + [r for r, _, _ in spans])
+            else:
+                kps, vps = self.kv.pools()
+                logits, kps, vps = self._fused_fn(self.params, kps, vps,
+                                                  *dev)
+                self.kv.install_pools(kps, vps)
             tr.sync(logits)
             if tr.enabled or time_it:
                 if not tr.enabled and logits.is_cuda:
@@ -964,9 +1071,13 @@ class InferenceEngine:
                 if self.use_paged_prefill:
                     self._prefill_chunk_step()
                 self._decode_batch()
-            # Θ-triggered rebalance (at most one request per step, §5.3)
+            # Θ-triggered rebalance (at most one request per step, §5.3);
+            # once the module probe has attributed measured attention time,
+            # the dispatcher recalibrates from the snapshot first
+            snap = (self.snapshot(ATTN_SNAPSHOT_PREFIX)
+                    if self._measured_attn else None)
             d = maybe_rebalance(self.workers, list(self.attn_reqs.values()),
-                                theta=self.ecfg.theta)
+                                theta=self.ecfg.theta, snapshot=snap)
             if d is not None:
                 with tr.span("rebalance", args={"rid": d.request.rid}):
                     self._apply_migration(d.request.rid, d.new_placement)
@@ -979,7 +1090,10 @@ class InferenceEngine:
                             track="sim")
                 tr.add_span("dense_model", self.clock + attn_t, dense_t,
                             track="sim")
-            # migrations ride in the dense-compute overlap window (§6)
+            # migrations ride in the dense-compute overlap window (§6);
+            # the link model follows the measured h2d bandwidth gauge
+            if self._g_h2d_gbps.value > 0.0:
+                self.hauler.calibrate_from_snapshot(self.snapshot("xfer/"))
             self.hauler.advance(step_time * self.ecfg.migration_overlap)
             self.clock += step_time
             self._c_steps.inc()
@@ -990,15 +1104,16 @@ class InferenceEngine:
                 "queued": len(self.queue)}
 
     # ------------------------------------------------------ simulated timing
+    def _dense_roofline_s(self, tokens: float) -> float:
+        """Seconds of the dense modules over ``tokens`` tokens at the
+        primaries' peak rate (efficiency 1), the slowest primary's."""
+        fl = (dense_flops_layer(self.profile, tokens)
+              * self.profile.n_layers / len(self.primary_ids))
+        return max(fl / (self._devs[did].cls.dense_tflops * 1e12)
+                   for did in self.primary_ids)
+
     def _model_prefill_time(self, prompt_len: int) -> float:
-        devs = self._devs
-        t = 0.0
-        for did in self.primary_ids:
-            cls = devs[did].cls
-            fl = dense_flops_layer(self.profile, prompt_len) \
-                * self.profile.n_layers / len(self.primary_ids)
-            t = max(t, fl / (cls.dense_tflops * 1e12 * self._dense_eff))
-        return t
+        return self._dense_roofline_s(prompt_len) / self._dense_eff
 
     def _model_decode_parts(self) -> Tuple[float, float]:
         """(attention, dense) modeled step seconds."""
@@ -1007,15 +1122,8 @@ class InferenceEngine:
         r0 = next(iter(self.attn_reqs.values()))
         attn_t = current_attention_time(self.workers, r0.group_ratio,
                                         r0.head_dim, r0.dtype_bytes)
-        devs = self._devs
-        dense_t = 0.0
-        nb = max(1, len(self.running))
-        for did in self.primary_ids:
-            cls = devs[did].cls
-            fl = dense_flops_layer(self.profile, nb) * self.profile.n_layers \
-                / len(self.primary_ids)
-            dense_t = max(dense_t, fl / (cls.dense_tflops * 1e12
-                                         * self._dense_eff))
+        dense_t = self._dense_roofline_s(max(1, len(self.running))) \
+            / self._dense_eff
         return attn_t, dense_t
 
     # ------------------------------------------------------------------- run

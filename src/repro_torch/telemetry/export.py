@@ -8,13 +8,20 @@ a ``process_name`` metadata event, so the wall-clock engine timeline and
 the simulated-clock timeline render side by side without sharing a time
 base.
 
-The reference's schema validator (``python -m repro.telemetry.export``)
-reads the files this writes.
+``validate_chrome_trace`` / the ``python -m repro_torch.telemetry.export
+FILE`` CLI enforce the schema: the file parses, is non-empty, and every
+event carries ``name/ph/ts/pid/tid`` (with ``dur >= 0`` on "X" events).
+The CLI exits 0 on a valid trace, 1 on an invalid or unreadable one and 2
+on a wrong argument count.
 """
 
 from __future__ import annotations
 
+import json
+import sys
 from typing import Any, Dict, List, Sequence
+
+REQUIRED_KEYS = ("name", "ph", "ts", "pid", "tid")
 
 
 def spans_to_chrome(spans: Sequence) -> Dict[str, Any]:
@@ -48,3 +55,55 @@ def spans_to_chrome(spans: Sequence) -> Dict[str, Any]:
             ev["args"] = dict(sp.args)
         events.append(ev)
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def validate_chrome_trace(obj: Any) -> int:
+    """Validate a parsed Chrome trace object; returns the number of "X"
+    span events.  Raises ``ValueError`` on any schema violation."""
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        raise ValueError("trace must be an object with a traceEvents list")
+    events = obj["traceEvents"]
+    if not isinstance(events, list) or not events:
+        raise ValueError("traceEvents must be a non-empty list")
+    n_spans = 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        for key in REQUIRED_KEYS:
+            if key not in ev:
+                raise ValueError(f"event {i} missing required key {key!r}")
+        if not isinstance(ev["name"], str) or not isinstance(ev["ph"], str):
+            raise ValueError(f"event {i}: name/ph must be strings")
+        if not isinstance(ev["ts"], (int, float)):
+            raise ValueError(f"event {i}: ts must be a number")
+        if ev["ph"] == "X":
+            if not isinstance(ev.get("dur"), (int, float)) or ev["dur"] < 0:
+                raise ValueError(f"event {i}: X event needs dur >= 0")
+            n_spans += 1
+    if n_spans == 0:
+        raise ValueError("trace contains no span (ph='X') events")
+    return n_spans
+
+
+def validate_file(path: str) -> int:
+    with open(path) as f:
+        obj = json.load(f)
+    return validate_chrome_trace(obj)
+
+
+def main(argv: Sequence[str]) -> int:
+    if len(argv) != 1:
+        print("usage: python -m repro_torch.telemetry.export TRACE.json",
+              file=sys.stderr)
+        return 2
+    try:
+        n = validate_file(argv[0])
+    except (OSError, ValueError, json.JSONDecodeError) as e:
+        print(f"INVALID {argv[0]}: {e}", file=sys.stderr)
+        return 1
+    print(f"OK {argv[0]}: {n} span events")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

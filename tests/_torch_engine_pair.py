@@ -37,12 +37,9 @@ def assert_same(j, t):
     assert t.clock == pytest.approx(j.clock, rel=1e-12)
 
 
-def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
-                      seed=0):
-    """Serve ``n`` requests (prompts of [lo, hi) tokens drawn from
-    ``seed``, ``max_new`` new tokens each) on both engines built with
-    ``EngineConfig(**ecfg)``, comparing them after every step.  Returns
-    the port's engine, drained."""
+def engine_pair(jcfg, tcfg, params_np, ecfg):
+    """Both engines built with ``EngineConfig(**ecfg)`` on the same
+    weights and cluster: (the reference's, the port's on the CPU)."""
     j = JEngine(jcfg, jax.tree.map(jnp.asarray, params_np),
                 JCluster.build(HOSTS), primary_ids=[0], pool_ids=[1],
                 engine_cfg=JEngineConfig(**ecfg))
@@ -51,12 +48,31 @@ def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
                 engine_cfg=TEngineConfig(**ecfg), device="cpu")
     assert (t.use_fused, t.use_paged, t.use_paged_prefill) \
         == (j.use_fused, j.use_paged, j.use_paged_prefill)
+    return j, t
+
+
+def submit_requests(engines, vocab_size, n, lo, hi, max_new, seed=0):
+    """The same ``n`` requests (prompts of [lo, hi) tokens drawn from
+    ``seed``, ``max_new`` new tokens each) to every engine; each engine
+    package's own ``Request``."""
     rng = np.random.default_rng(seed)
     for i in range(n):
-        prompt = [int(x) for x in rng.integers(0, tcfg.vocab_size,
+        prompt = [int(x) for x in rng.integers(0, vocab_size,
                                                rng.integers(lo, hi))]
-        j.submit(JRequest(rid=i, prompt=list(prompt), max_new_tokens=max_new))
-        t.submit(TRequest(rid=i, prompt=list(prompt), max_new_tokens=max_new))
+        for eng in engines:
+            req = JRequest if isinstance(eng, JEngine) else TRequest
+            eng.submit(req(rid=i, prompt=list(prompt),
+                           max_new_tokens=max_new))
+
+
+def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
+                      seed=0):
+    """Serve ``n`` requests (prompts of [lo, hi) tokens drawn from
+    ``seed``, ``max_new`` new tokens each) on both engines built with
+    ``EngineConfig(**ecfg)``, comparing them after every step.  Returns
+    the port's engine, drained."""
+    j, t = engine_pair(jcfg, tcfg, params_np, ecfg)
+    submit_requests((j, t), tcfg.vocab_size, n, lo, hi, max_new, seed)
     for _ in range(200):
         if not (j.queue or j.running or j.prefilling):
             break

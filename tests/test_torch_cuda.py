@@ -449,3 +449,67 @@ def test_moe_apply_on_the_card_matches_the_cpu_without_syncing(cuda, shared):
     err = (got.cpu() - want).abs()
     assert bool((err <= 2e-5 * (1 + want.abs())).all()), float(err.max())
     assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+
+
+# -------------------------------------------------------- the module probe
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_probe_on_the_card_emits_the_cpu_tokens(cuda, mode):
+    """The reduced fp32 engine (dh 64, so B1 and B2 take it) with the
+    per-module probe on the card emits the CPU engine's tokens and the
+    untraced card engine's; its module spans are all there, and the
+    loop's gauges are set."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    params = init_params(cfg, 0, device="cpu")
+
+    def serve(dev, probe):
+        eng = InferenceEngine(
+            cfg, _to(params, dev), ClusterSpec.build([("A100", 1),
+                                                      ("3090", 1)]),
+            primary_ids=[0], pool_ids=[1],
+            engine_cfg=EngineConfig(max_batch=8, max_seq=128, page_size=16,
+                                    prefill_chunk=16, step_mode=mode,
+                                    telemetry=probe, trace_modules=probe),
+            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=[
+                int(x) for x in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(5, 60)))],
+                max_new_tokens=8))
+        assert eng.run_until_drained(500)
+        return eng, {r.rid: r.output for r in eng.finished}
+
+    eng, got = serve(cuda, True)
+    assert got == serve("cpu", True)[1] == serve(cuda, False)[1]
+    calls = eng.metrics["model_calls"]
+    assert eng.tracer.count("attention") == cfg.n_layers * calls
+    assert eng.tracer.count("lm_head") == calls
+    snap = eng.snapshot()
+    assert snap["xfer/h2d_gbps"] > 0.0 and eng._dense_eff != 0.5
+    assert any(k.startswith("attn/device/") for k in snap)
+
+
+def test_profile_attention_on_the_card(cuda):
+    """The default 8 x 8 grid of (h, ctx) on the card: 64 samples, every
+    one timed above zero."""
+    from repro_torch.core.profiler import fit_attention_model, \
+        profile_attention
+    s = profile_attention(device="cuda")
+    assert len(s) == 64 and all(t > 0.0 for _h, _g, t in s)
+    assert len({(h, g) for h, g, _t in s}) == 64
+    _model, r2 = fit_attention_model(s)
+    assert r2 <= 1.0

@@ -93,18 +93,6 @@ def test_dense_modes_build_with_the_reference_schedule(ecfg):
     assert not eng.use_fused
 
 
-@pytest.mark.parametrize("ecfg, item", [
-    (dict(trace_modules=True, telemetry=True), "item 5"),
-])
-def test_unported_engine_modes_raise(ecfg, item):
-    cfg = smoke_config("qwen3-14b")
-    params = init_params(cfg, 0, device="cpu")
-    cluster = ClusterSpec.build([("A100", 1), ("3090", 1)])
-    with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine(cfg, params, cluster, primary_ids=[0], pool_ids=[1],
-                        engine_cfg=EngineConfig(**ecfg), device="cpu")
-
-
 def test_split_schedule_is_ported_and_unknown_modes_refused():
     cfg = smoke_config("qwen3-14b")
     params = init_params(cfg, 0, device="cpu")
