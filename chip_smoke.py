@@ -23,7 +23,11 @@ Phases, in order; any failure exits nonzero:
               128, S 1024, causal) in bf16 and fp32, at the engine's
               shortest prompt (S 128), a sliding-window case, a non-causal
               case with S not a tile multiple, and MHA cases at dh 64 and
-              96, beside F.scaled_dot_product_attention.  Every case also
+              96; and at the families' shapes, each in bf16 and fp32:
+              deepseek-v3's MLA (128 MHA heads, q/k 192, v 128, S 1024,
+              causal), hubert's dh 80 (16 MHA heads, S 1600, non-causal)
+              and hymba's window (25 over 5 heads, dh 64, window 1024, S
+              2048); beside F.scaled_dot_product_attention.  Every case also
               reads the wrapper's host time per call; with --profile the
               kernel table's cases (B1 mixed and decode-only, B2 decode, B3
               prefill) and B3 at S 128 also read kernel and SDPA time from
@@ -35,7 +39,12 @@ Phases, in order; any failure exits nonzero:
               reduced dbrx (MoE) the same way under the fused step and the
               split schedule, its row batches past 64 token rows (the capped
               MoE pass, which drops assignments), every MoE call on the GPU
-              run under torch.cuda.set_sync_debug_mode("error").
+              run under torch.cuda.set_sync_debug_mode("error").  Then the
+              reduced fp32 families off the engine's path (hymba, deepseek,
+              xlstm, internvl2; head dims the flash kernel is built for)
+              through prefill and 8 greedy decode_step tokens on the GPU
+              and the CPU, carry and stacked: identical tokens; hubert's
+              forward_hidden on both within 1e-4.
   5. engine:  the port's InferenceEngine serving qwen3-14b at full width
               and depth with seeded random weights, on a simulated
               A100 + 3090 cluster whose two pool shards both live on this
@@ -83,6 +92,27 @@ Phases, in order; any failure exits nonzero:
   9. dense configs: phase 5's fused run on qwen1.5-0.5b, phi3-mini-3.8b and
               minitron-8b at full width and depth, and on qwen1.5-0.5b with
               fp8 (e4m3) KV pools.
+ 10. families: the model families the engine does not serve, through the
+              model functions at their published widths with seeded bf16
+              weights, one after another: hymba-1.5b (32 layers; 4
+              right-padded prompts of 1100-2048 tokens, so its 1024 window
+              cuts), deepseek-v3-671b (its 3 dense and first 2 MoE layers of
+              61; prompts of 128-1024), internvl2-1b (24; 256 image
+              embeddings before 128-512 tokens) and xlstm-350m (24;
+              128-512): one prefill and 16 greedy tokens each (15
+              decode_step calls, carry); hubert-xlarge (48):
+              forward_hidden on 2 clips of 1000-1600 frames.  Exact B3
+              launches (attention layers x prefill calls, none in decode),
+              the first call's layer-0 B3 launch against the plain version,
+              its last-token logits (hubert: hidden states) against a
+              plain-attention re-run under the 0.1 limit with the P-rounded
+              floor and a dropped-key-tile fault read in the same run;
+              finite logits and 16 tokens per request.  Prefill ms, ms per
+              decode token, generated tokens/s, peak memory, and from an
+              instrumented re-run B3's device time (CUDA events around
+              each launch, queued behind a spin kernel) over the prefill's
+              wall and the token scans' share (hymba's SSM, xLSTM's
+              blocks; synchronised wall time).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -250,14 +280,17 @@ def ragged_contexts():
 
 
 # ----------------------------------------------------------- B1 (prefill)
-def tile_smem_bytes(size, dh, warps):
+def tile_smem_bytes(size, dh, warps, dv=None):
     """Dynamic shared memory per block of the kernels' shared tile, from
     its sizes (``Layout`` in src/repro_torch/kernels/csrc/attention_tile.cuh):
-    a Q tile of 16 rows per warp and two stages of K and V tiles (32 keys
-    in fp32 and in one-warp split tiles, else 64), rows padded by 16 B, and
-    in fp32 a P tile."""
+    a Q tile of 16 rows per warp and two stages of K tiles (rows dh wide)
+    and V tiles (dv, default dh; 32 keys in fp32 and in one-warp split
+    tiles, else 64), rows padded by 16 B, and in fp32 a P tile."""
+    dv = dh if dv is None else dv
     keys = 32 if warps == 1 or size == 4 else 64
-    nbytes = (16 * warps + 2 * 2 * keys) * (dh + 16 // size) * size
+    pad = 16 // size
+    nbytes = ((16 * warps + 2 * keys) * (dh + pad)
+              + 2 * keys * (dv + pad)) * size
     return nbytes + (warps * 16 * (keys + 4) * 4 if size == 4 else 0)
 
 
@@ -506,12 +539,15 @@ def visible_pairs(Sq, Sk, causal, window):
     return int(ok.sum())
 
 
-def bound_flash(q, k, causal, window, dname):
+def bound_flash(q, k, causal, window, dname, dv=None):
     """(bound_ms, bound_by, bytes, flops): q, k and v read once, the output
-    written once; 4 * dh FLOPs per (query row, visible key)."""
+    written once; 2 * (dh + dv) FLOPs per (query row, visible key)."""
     B, Hq, Sq, dh = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4.0 * dh * B * Hq * visible_pairs(Sq, k.shape[2], causal, window)
+    dv = dh if dv is None else dv
+    nbytes = (q.numel() + k.numel() + (k.numel() + q.numel()) // dh * dv) \
+        * q.element_size()
+    flops = 2.0 * (dh + dv) * B * Hq * visible_pairs(Sq, k.shape[2], causal,
+                                                     window)
     return roofline(nbytes, flops, dname) + (nbytes, flops)
 
 
@@ -527,6 +563,18 @@ def sdpa_flash_call(q, k, v, causal, window):
             q, k, v, attn_mask=mask, enable_gqa=True)
     return lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True)
+
+
+# B3 at the families' prefill shapes (kernel phase name -> widths, S,
+# causal, window)
+FAMILY_FLASH = {
+    # deepseek-v3's MLA: 128 MHA heads, q/k 192 (nope 128 + rope 64), v 128
+    "mla": (dict(Hq=128, Hkv=128, dh=192, dv=128), 1024, True, 0),
+    # hubert-xlarge: 16 MHA heads at dh 80, non-causal, its longest clip
+    "dh80_noncausal": (dict(Hq=16, Hkv=16, dh=80), 1600, False, 0),
+    # hymba-1.5b's windowed layers: 25 over 5 heads, dh 64, window 1024
+    "window_1024": (dict(Hq=25, Hkv=5, dh=64), 2048, True, 1024),
+}
 
 
 def flash_kernel_phase(dev, flush, profile):
@@ -548,13 +596,18 @@ def flash_kernel_phase(dev, flush, profile):
         "mha_dh96": (torch.bfloat16, dict(Hq=32, Hkv=32, dh=96), 1024, True,
                      0),
     }
+    # the families' shapes, each in both types
+    for name, (w, S, causal, window) in FAMILY_FLASH.items():
+        cases[name] = (torch.bfloat16, w, S, causal, window)
+        cases[name + "_fp32"] = (torch.float32, w, S, causal, window)
     results = {}
     for name, (dtype, w, S, causal, window) in cases.items():
         dname = dtype_name(dtype)
+        dv = w.get("dv", w["dh"])
         g = torch.Generator(device=dev).manual_seed(3)
         rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
         q = rnd(1, w["Hq"], S, w["dh"])
-        k, v = rnd(1, w["Hkv"], S, w["dh"]), rnd(1, w["Hkv"], S, w["dh"])
+        k, v = rnd(1, w["Hkv"], S, w["dh"]), rnd(1, w["Hkv"], S, dv)
         call = lambda: ops.flash_attention(q, k, v, causal=causal,
                                            window=window)
         got = call()
@@ -569,8 +622,8 @@ def flash_kernel_phase(dev, flush, profile):
         lib = time_ms(sdpa, 10, flush)
         results[name] = report(
             "B3", name, list(q.shape), dname, max_err, ms, plain, lib,
-            *bound_flash(q, k, causal, window, dname))
-        results[name].update(kv_shape=list(k.shape), causal=causal,
+            *bound_flash(q, k, causal, window, dname, dv))
+        results[name].update(kv_shape=list(k.shape), dv=dv, causal=causal,
                              window=window)
         host = host_ms(call, 20)
         results[name]["host_ms"] = host
@@ -671,7 +724,7 @@ def plain_flash(round_p=False, drop_tile=False):
             pv = pr.to(v.dtype).float() if round_p else pr
             o = torch.einsum("bhrqk,bhkd->bhrqd", pv, v.float())
             o = torch.where(l > 0, o / l.clamp(min=1e-30), 0.0)
-            o = o.reshape(B, Hq, Sq, dh).to(q.dtype)
+            o = o.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
         return o.transpose(1, 2) if layout == "BSHD" else o
     return fn
 
@@ -832,6 +885,103 @@ def small_engine_phase(dev):
             f"({sum(len(v) for v in want.values())} tokens); MoE calls on "
             f"the GPU {len(calls)}, {capped} of them capped (T > 64; T seen "
             f"{sorted(set(calls))}), none synchronised with the host")
+
+
+# the reduced families at head dims the flash kernel is built for
+FAMILY_GPU = {
+    "hymba-1.5b": dict(head_dim=64),
+    "deepseek-v3-671b": dict(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                             v_head_dim=128, head_dim=192),
+    "xlstm-350m": {},
+    "internvl2-1b": dict(head_dim=64),
+    "hubert-xlarge": dict(head_dim=80),
+}
+
+
+def family_batch(cfg, dev, lens, seed, dtype=None):
+    """Right-padded inputs of ``len(lens)`` rows: random tokens (0 past
+    each row's length), 256 (reduced: 4) image embeddings before them for
+    the vision stub, frames for the audio stub (one clip a row, equal
+    lengths).  Returns (batch, lengths counting any prefix)."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S = len(lens), int(max(lens))
+    dtype = dtype or torch.float32
+    if cfg.frontend == "audio_stub":
+        frames = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+        return {"frames": frames.to(dtype)}, None
+    toks = np.zeros((B, S), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, int(n))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    P = cfg.n_prefix_embeds
+    if cfg.frontend == "vision_stub":
+        batch["image_embeds"] = torch.randn(
+            (B, P, cfg.d_model), generator=g, device=dev).to(dtype)
+    lengths = torch.tensor([int(n) + P for n in lens], dtype=torch.int32,
+                           device=dev)
+    return batch, lengths
+
+
+def greedy(cfg, params, batch, lengths, new_tokens, max_seq):
+    """prefill, then ``new_tokens`` greedy tokens (the first from the
+    prefill's logits, the rest from ``decode_step``): (tokens (B, n),
+    every step's logits)."""
+    from repro_torch.models import transformer as T
+    logits, cache = T.prefill(cfg, params, batch, max_seq, lengths)
+    toks, outs = [logits.argmax(-1)], [logits]
+    for _ in range(new_tokens - 1):
+        logits, cache = T.decode_step(cfg, params, cache, toks[-1][:, None])
+        toks.append(logits.argmax(-1))
+        outs.append(logits)
+    return torch.stack(toks, 1), outs
+
+
+def small_family_phase(dev):
+    """The reduced fp32 families off the engine's path (their head dims
+    set to ones the flash kernel is built for) on the GPU against the
+    CPU: prefill of 3 right-padded rows and 8 greedy tokens, carry and
+    stacked, identical; hubert's forward_hidden within 1e-4.  Exact B3
+    launches on the GPU: one per attention layer and prefill."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+    for name, override in FAMILY_GPU.items():
+        base = dataclasses.replace(smoke_config(name), **override)
+        cpu_params = init_params(base, 0, device="cpu")
+        gpu_params = to_device(cpu_params, dev)
+        attn_layers = 0 if base.xlstm_pattern else base.n_layers
+        if base.is_encoder_only:
+            batch, _ = family_batch(base, "cpu", [150, 150], 0)
+            want, _ = T.forward_hidden(base, cpu_params, batch)
+            fa_ops.LAUNCHES["flash_attention"] = 0
+            got, _ = T.forward_hidden(base, gpu_params,
+                                      to_device(batch, dev))
+            torch.cuda.synchronize()
+            err = float((got.cpu() - want).abs().max())
+            assert fa_ops.LAUNCHES["flash_attention"] == attn_layers
+            assert err <= 1e-4, (name, err)
+            log(f"small families: {name} (dh {base.head_dim}, non-causal) "
+                f"forward_hidden GPU vs CPU max abs {err:.3g} (limit 1e-4); "
+                f"B3 launches {attn_layers}")
+            continue
+        for impl in ("carry", "stacked"):
+            cfg = dataclasses.replace(base, decode_impl=impl)
+            batch, lengths = family_batch(cfg, "cpu", [40, 31, 17], 0)
+            max_seq = int(lengths.max()) + 8
+            want, _ = greedy(cfg, cpu_params, batch, lengths, 8, max_seq)
+            fa_ops.LAUNCHES["flash_attention"] = 0
+            got, _ = greedy(cfg, gpu_params, to_device(batch, dev),
+                            lengths.to(dev), 8, max_seq)
+            torch.cuda.synchronize()
+            launches = fa_ops.LAUNCHES["flash_attention"]
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"small {name} ({impl}): GPU tokens "
+                                     f"{got.tolist()} != CPU {want.tolist()}")
+            assert launches == attn_layers, (name, launches)
+            log(f"small families: {name} ({impl}; {T.layer_groups(cfg)}) "
+                f"3 rows x 8 tokens GPU == CPU; B3 launches {launches}")
 
 
 # ------------------------------------------------------------- engine phase
@@ -1560,6 +1710,260 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
     return out
 
 
+# the families phase: published widths; depth (0: all layers), the rows'
+# lengths (tokens, or hubert's frames), the row count
+FAMILIES = {
+    "hymba-1.5b": dict(lens=(1100, 2048)),
+    # the 3 dense and the first 2 MoE layers of 61 (~53 GB in bf16)
+    "deepseek-v3-671b": dict(layers=5, lens=(128, 1024)),
+    "internvl2-1b": dict(lens=(128, 512)),
+    "hubert-xlarge": dict(lens=(1000, 1600), rows=2),
+    "xlstm-350m": dict(lens=(128, 512)),
+}
+FAMILY_NEW_TOKENS = 16
+# where a family's floor and fault must bracket LOGITS_LIMIT: its output,
+# except hubert's, whose final hidden states a dropped key tile (64 of
+# 1600 keys, non-causal, under 48 layers of residual stream) moves by
+# 0.027 only, against a 0.014 floor (PERF.md §6): there the layer-0
+# attention output, where the same fault moves the output itself
+BRACKET_AT_LAYER0 = ("hubert-xlarge",)
+
+
+# spin-kernel cycles queued before a timed launch (~0.1 ms at the H100's
+# clocks, more than a wrapper's host time), so the start event fires only
+# after the launch is queued and the events hold the kernel's device time
+SPIN_CYCLES = 200_000
+
+
+class EventTimer:
+    """Wraps ``fn`` (a module attribute) while a run goes: with
+    ``device``, CUDA events around each call, after a spin kernel that
+    keeps the card busy while the host launches (the events hold the
+    call's device time only); else the wall time of each call between two
+    synchronisations."""
+
+    def __init__(self, module, attr, device):
+        self.module, self.attr, self.device = module, attr, device
+        self.fn = getattr(module, attr)
+        self.pairs, self.wall = [], 0.0
+
+    def _call(self, *a, **kw):
+        if self.device:
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(SPIN_CYCLES)
+            s.record()
+            out = self.fn(*a, **kw)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.wall += time.perf_counter() - t
+        self.pairs.append(None)
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self._call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+    def ms(self):
+        if self.device:
+            return sum(s.elapsed_time(e) for s, e in self.pairs)
+        return self.wall * 1e3
+
+
+def family_phase(dev, name):
+    """One family at its published widths (``FAMILIES``): its main run
+    (prefill and 15 carry decode_step calls, or hubert's forward_hidden
+    per clip) with the B3 launch count set to 0 just before and read just
+    after; the first call's layer-0 B3 launch against the plain version;
+    that call's last-token logits (hubert: hidden states) against plain
+    re-runs; then an instrumented prefill for B3's and the scans' shares.
+    Returns the phase's numbers."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as xlstm_mod
+    spec = FAMILIES[name]
+    cfg, params = full_width_params(dev, name, spec.get("layers", 0))
+    rng = np.random.default_rng(1)
+    lo, hi = spec["lens"]
+    lens = rng.integers(lo, hi + 1, spec.get("rows", 4))
+    lens[0] = hi                          # the longest row at the top
+    attn_layers = 0 if cfg.xlstm_pattern else cfg.n_layers
+    new = FAMILY_NEW_TOKENS
+    encoder = cfg.is_encoder_only
+    if encoder:                           # one clip per call
+        clips = [family_batch(cfg, dev, [int(n)], i, torch.bfloat16)[0]
+                 for i, n in enumerate(lens)]
+        first = lambda: T.forward_hidden(cfg, params, clips[0])[0]
+        max_seq = 0
+    else:
+        batch, lengths = family_batch(cfg, dev, lens, 0, torch.bfloat16)
+        max_seq = int(lengths.max()) + new
+        first = lambda: T.prefill(cfg, params, batch, max_seq, lengths)[0]
+    kernel_fn = fa_ops.flash_attention
+    layer0 = []                            # layer 0's inputs and output
+
+    def capture(*a, **kw):
+        o = kernel_fn(*a, **kw)
+        if not layer0:
+            layer0.append((a, kw, o))
+        return o
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES["flash_attention"] = 0  # the main run starts here
+    fa_ops.flash_attention = capture
+    try:
+        t0 = time.perf_counter()
+        if encoder:
+            outs = []
+            for c in clips:
+                outs.append(T.forward_hidden(cfg, params, c)[0])
+                torch.cuda.synchronize()
+                t_first = t_first if len(outs) > 1 else time.perf_counter()
+            t1 = time.perf_counter()
+            checked, toks, steps = outs[0], None, []
+        else:
+            logits, cache = T.prefill(cfg, params, batch, max_seq, lengths)
+            torch.cuda.synchronize()
+            t1 = t_first = time.perf_counter()
+            checked, toks, steps = logits, [logits.argmax(-1)], [logits]
+            for _ in range(new - 1):
+                logits, cache = T.decode_step(cfg, params, cache,
+                                              toks[-1][:, None])
+                toks.append(logits.argmax(-1))
+                steps.append(logits)
+            torch.cuda.synchronize()
+            toks = torch.stack(toks, 1).cpu()
+            del cache
+    finally:
+        fa_ops.flash_attention = kernel_fn
+    t2 = time.perf_counter()
+    launches = fa_ops.LAUNCHES["flash_attention"]   # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls = len(lens) if encoder else 1
+    out = dict(layers=cfg.n_layers, groups=T.layer_groups(cfg),
+               rows=[int(n) for n in lens],
+               launches={NAMES["B3"]: launches}, prefill_calls=calls,
+               prefill_ms=(t1 - t0) * 1e3 / calls,
+               first_call_ms=(t_first - t0) * 1e3, peak_gb=peak_gb,
+               finite=bool(all(torch.isfinite(x).all() for x in steps
+                               + [checked])))
+    if not encoder:
+        out.update(decode_ms_per_token=(t2 - t1) * 1e3 / (new - 1),
+                   tokens_per_s=len(lens) * new / (t2 - t0),
+                   tokens=toks.tolist())
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def rerun(attn_fn):
+        fa_ops.flash_attention = attn_fn
+        try:
+            return first()
+        finally:
+            fa_ops.flash_attention = kernel_fn
+
+    if attn_layers:
+        a0, kw0, o0 = layer0[0]
+        r0 = plain_flash()(*a0, **kw0).float()
+        e0 = (o0.float() - r0).abs()
+        ref = rerun(plain_flash())
+        out.update(layer0_shape=[list(t.shape) for t in a0],
+                   layer0_max_abs=float(e0.max()),
+                   layer0_ok=bool((e0 <= TOL["bfloat16"]
+                                   * (1 + r0.abs())).all()),
+                   layer0_rel_l2=rel_l2(o0, r0),
+                   layer0_floor_rel_l2=rel_l2(
+                       plain_flash(round_p=True)(*a0, **kw0), r0),
+                   layer0_fault_rel_l2=rel_l2(
+                       plain_flash(drop_tile=True)(*a0, **kw0), r0),
+                   rel_l2=rel_l2(checked, ref),
+                   floor_rel_l2=rel_l2(rerun(plain_flash(round_p=True)),
+                                       ref),
+                   fault_rel_l2=rel_l2(rerun(plain_flash(drop_tile=True)),
+                                       ref))
+        if not encoder:
+            out["argmax_agree"] = float(
+                (checked.argmax(-1) == ref.argmax(-1)).float().mean())
+        del a0, kw0, o0, r0, e0, ref
+    layer0.clear()
+    torch.cuda.empty_cache()
+
+    # the instrumented re-run of the first call (hubert: its first clip):
+    # B3 by events, the token scans by synchronised wall time
+    scans = [(ssm_mod, "_scan")] if cfg.ssm_state else \
+        [(xlstm_mod, "_mlstm_scan"), (xlstm_mod, "_slstm_scan")] \
+        if cfg.xlstm_pattern else []
+    with contextlib.ExitStack() as stack:
+        b3 = stack.enter_context(EventTimer(fa_ops, "flash_attention", True))
+        timers = [stack.enter_context(EventTimer(m, a, False))
+                  for m, a in scans]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        first()
+        torch.cuda.synchronize()
+        inst_ms = (time.perf_counter() - t) * 1e3
+    out.update(instrumented_prefill_ms=inst_ms, b3_ms=b3.ms(),
+               b3_share=b3.ms() / out["first_call_ms"],
+               scan_ms=sum(tm.ms() for tm in timers),
+               scan_share=sum(tm.ms() for tm in timers) / inst_ms)
+
+    what = (f"forward_hidden on clips of {out['rows']} frames" if encoder
+            else f"prefill of rows of {out['rows']} tokens")
+    if cfg.n_prefix_embeds:
+        what += f" after {cfg.n_prefix_embeds} image embeddings"
+    log(f"family {name}: {cfg.n_layers} layers {out['groups']}; {what}")
+    log(f"family {name}: prefill {out['prefill_ms']:.1f} ms per call"
+        + ("" if encoder else
+           f", decode {out['decode_ms_per_token']:.2f} ms per token, "
+           f"{out['tokens_per_s']:.2f} generated tokens/s ({len(lens)} x "
+           f"{new})") + f"; peak memory {peak_gb:.1f} GB")
+    log(f"family {name}: instrumented prefill {inst_ms:.1f} ms: B3 "
+        f"{out['b3_ms']:.2f} ms of device time in {len(b3.pairs)} launches "
+        f"(events behind a spin kernel; {out['b3_share']:.3f} of the "
+        f"first call's wall, {out['first_call_ms']:.1f} ms), token scans "
+        f"{out['scan_ms']:.1f} ms "
+        f"({out['scan_share']:.3f} of the instrumented prefill; "
+        f"synchronised wall)")
+    log(f"family {name}: B3 launches {launches} == {attn_layers} attention "
+        f"layers x {calls} prefill calls")
+    assert launches == attn_layers * calls, (launches, attn_layers, calls)
+    assert len(b3.pairs) == attn_layers
+    assert out["finite"], "non-finite logits"
+    if not encoder:
+        assert toks.shape == (len(lens), new)
+        assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    if attn_layers:
+        log(f"family {name}: layer-0 B3 {out['layer0_shape']} vs plain max "
+            f"abs err {out['layer0_max_abs']:.3g} (tol {TOL['bfloat16']}), "
+            f"rel L2 {out['layer0_rel_l2']:.4g} (P rounded "
+            f"{out['layer0_floor_rel_l2']:.4g}, keys 64-127 dropped "
+            f"{out['layer0_fault_rel_l2']:.4g}); "
+            f"{'hidden states' if encoder else 'last-token logits'} vs a "
+            f"plain-attention re-run rel L2 {out['rel_l2']:.4g} (limit "
+            f"{LOGITS_LIMIT}; P rounded {out['floor_rel_l2']:.4g}, keys "
+            f"64-127 dropped {out['fault_rel_l2']:.4g})"
+            + ("" if encoder else
+               f", same argmax {out['argmax_agree']:.3f}"))
+        if not (out["layer0_ok"] and out["rel_l2"] <= LOGITS_LIMIT):
+            raise AssertionError(f"{name}: kernel disagrees with the plain "
+                                 f"re-run: {out}")
+        at = "layer0_" if name in BRACKET_AT_LAYER0 else ""
+        assert out[at + "floor_rel_l2"] < LOGITS_LIMIT \
+            < out[at + "fault_rel_l2"], out
+        assert out["layer0_rel_l2"] <= LOGITS_LIMIT, out
+    return out
+
+
 def full_width_params(dev, name, n_layers=0, seed=0):
     """The published config ``name`` (its first ``n_layers`` layers, where
     given) and seeded weights for it on the card."""
@@ -1647,12 +2051,16 @@ def main(argv=None) -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
-    for kid, warps in (("B1", (1, 4)), ("B2", (1,)), ("B3", (4,))):
+    for kid, warps in (("B1", (1, 4)), ("B2", (1,))):
         log(f"build: {NAMES[kid]}: dynamic shared memory per block " +
             ", ".join(f"{dt} dh {dh} {w} warp(s) "
                       f"{tile_smem_bytes(size, dh, w)} B"
                       for dt, size in (("fp32", 4), ("bf16", 2))
                       for dh in ops.HEAD_DIMS for w in warps))
+    log(f"build: {NAMES['B3']}: dynamic shared memory per block (4 warps) " +
+        ", ".join(f"{dt} dh {dh} dv {dv} {tile_smem_bytes(size, dh, 4, dv)} B"
+                  for dt, size in (("fp32", 4), ("bf16", 2))
+                  for dh, dv in fa_ops.HEAD_DIMS))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     b1 = prefill_kernel_phase(dev, flush, args.profile)
@@ -1660,6 +2068,7 @@ def main(argv=None) -> int:
     b3 = flash_kernel_phase(dev, flush, args.profile)
     del flush
     small_engine_phase(dev)
+    small_family_phase(dev)
     # the engine phases serve the same weights; each engine's pools are
     # freed before the next engine allocates its own
     cfg, params = full_width_params(dev, "qwen3-14b")
@@ -1718,8 +2127,14 @@ def main(argv=None) -> int:
         del params
         free(name)
 
+    # the families the engine does not serve, through the model functions
+    families = {}
+    for name in FAMILIES:
+        families[name] = family_phase(dev, name)
+        free(name)
+
     runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values(),
-            *probe.values())
+            *probe.values(), *families.values())
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
@@ -1731,6 +2146,7 @@ def main(argv=None) -> int:
              "engine_fused": fused, "engine_split": split,
              "engine_dense_prefill": dense, "engine_dbrx": dbrx,
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
+             "families": families,
              "profile_attention": tau,
              "split_fused_token_agreement": [same, total],
              "dense_split_token_agreement": [same_dense, total],

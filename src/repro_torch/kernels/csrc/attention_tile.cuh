@@ -67,19 +67,22 @@ struct Tiles<float> {
   static constexpr int kPad = 4;
 };
 
-template <typename T, int DH, int kWarps>
+// Q and K rows are DQK wide, V and output rows DV (MLA: 192 and 128).
+template <typename T, int DQK, int DV, int kWarps>
 struct Layout {
   static constexpr int kM = 16 * kWarps;                 // query rows
   // keys: a one-warp split tile takes 32 (its loads, not its products,
   // bound it, and smaller stages let more blocks share an SM)
   static constexpr int kN = kWarps == 1 ? 32 : Tiles<T>::kN;
-  static constexpr int kStride = DH + Tiles<T>::kPad;    // shared row
+  static constexpr int kStride = DQK + Tiles<T>::kPad;   // Q and K row
+  static constexpr int kVStride = DV + Tiles<T>::kPad;   // V row
   static constexpr int kPStride = kN + 4;                // fp32 P row
   static constexpr size_t kQ = size_t(kM) * kStride * sizeof(T);
-  static constexpr size_t kKV = size_t(kStages) * kN * kStride * sizeof(T);
+  static constexpr size_t kK = size_t(kStages) * kN * kStride * sizeof(T);
+  static constexpr size_t kV = size_t(kStages) * kN * kVStride * sizeof(T);
   static constexpr size_t kP =
       std::is_same<T, float>::value ? size_t(kWarps) * 16 * kPStride * 4 : 0;
-  static constexpr size_t kBytes = kQ + 2 * kKV + kP;
+  static constexpr size_t kBytes = kQ + kK + kV + kP;
 };
 
 // Copies per batch of a tile load: the largest divisor of n up to 8.
@@ -93,11 +96,11 @@ __host__ __device__ constexpr int copy_batch(int n) {
 //   M                      folded query rows
 //   kLower                 (static) whether key_begin can exceed 0
 //   key_begin(j), key_end(j)   the keys row j sees (j < M or past it)
-//   q_row(j)               row j of q (dh contiguous, 16-byte aligned)
+//   q_row(j)               row j of q (DQK contiguous, 16-byte aligned)
 //   kv_row(key)            key's row index into K and V (clamped in range)
 //   k_row(i), v_row(i)     row i of K, V
-//   out_row(j)             row j of the output
-//   scale_log2             log2(e) / sqrt(dh)
+//   out_row(j)             row j of the output (DV contiguous)
+//   scale_log2             log2(e) / sqrt(DQK)
 //   kSplits                (static) whether keys may be cut into spans;
 //                          then n_splits, span, m_part, l_part, acc_part
 //                          and part_base(split): the partials' row 0
@@ -105,21 +108,23 @@ __host__ __device__ constexpr int copy_batch(int n) {
 // t = lane % 4) holds rows g and g + 8 of them.  Scores use the mma
 // accumulator layout in both types: s[j][e] / s[j][2 + e] is row g / g + 8
 // at key 8 j + 2 t + e.
-template <typename T, int DH, int kWarps, typename Blk>
+template <typename T, int DQK, int DV, int kWarps, typename Blk>
 __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
                                             unsigned char* smem) {
-  using L = Layout<T, DH, kWarps>;
+  using L = Layout<T, DQK, DV, kWarps>;
   constexpr bool kFloat = std::is_same<T, float>::value;
   constexpr int kThreads = kWarps * 32;
   constexpr int kM = L::kM, kN = L::kN, kStride = L::kStride;
+  constexpr int kVStride = L::kVStride;
   constexpr int kVec = 16 / sizeof(T);           // elements per 16 bytes
-  constexpr int kChunks = DH / kVec;             // 16-byte chunks per row
-  static_assert(DH % 16 == 0, "head dim");
+  constexpr int kChunks = DQK / kVec;            // 16-byte chunks: Q, K row
+  constexpr int kVChunks = DV / kVec;            // ... and a V row
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims");
 
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = reinterpret_cast<T*>(smem + L::kQ);
-  T* v_s = reinterpret_cast<T*>(smem + L::kQ + L::kKV);
-  float* p_s = reinterpret_cast<float*>(smem + L::kQ + 2 * L::kKV);
+  T* v_s = reinterpret_cast<T*>(smem + L::kQ + L::kK);
+  float* p_s = reinterpret_cast<float*>(smem + L::kQ + L::kK + L::kV);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -137,18 +142,24 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
   }
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kN - 1) / kN : 0;
 
-  // A tile is kN * kChunks 16-byte copies of K and as many of V, kCopies
-  // per thread.  The key rows of a batch are found (for paged keys: table
-  // entries read) before any of its copies is issued, so their latencies
-  // overlap instead of queueing behind each copy.
+  // A tile is kN * kChunks 16-byte copies of K, kCopies per thread, and
+  // kN * kVChunks of V.  The key rows of a batch are found (for paged
+  // keys: table entries read) before any of its copies is issued, so their
+  // latencies overlap instead of queueing behind each copy.  Where K and V
+  // rows are as wide, one pass copies both from the rows it found.
   constexpr int kCopies = kN * kChunks / kThreads;
   constexpr int kBatch = copy_batch(kCopies);
   static_assert(kCopies * kThreads == kN * kChunks && kCopies % kBatch == 0,
                 "tile copies");
+  constexpr int kVCopies = kN * kVChunks / kThreads;
+  constexpr int kVBatch = copy_batch(kVCopies);
+  static_assert(kVCopies * kThreads == kN * kVChunks &&
+                    kVCopies % kVBatch == 0,
+                "V tile copies");
   auto load_tile = [&](int tile, int stage) {
     const int k0 = k_lo + tile * kN;
     T* ks = k_s + stage * kN * kStride;
-    T* vs = v_s + stage * kN * kStride;
+    T* vs = v_s + stage * kN * kVStride;
 #pragma unroll 1
     for (int i0 = 0; i0 < kCopies; i0 += kBatch) {
       size_t row[kBatch];
@@ -164,7 +175,27 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
         const int dst = (c / kChunks) * kStride + col;
         const int bytes = k0 + c / kChunks < k_hi ? 16 : 0;  // else zeros
         cp_async16(ks + dst, blk.k_row(row[i]) + col, bytes);
-        cp_async16(vs + dst, blk.v_row(row[i]) + col, bytes);
+        if constexpr (DQK == DV)
+          cp_async16(vs + dst, blk.v_row(row[i]) + col, bytes);
+      }
+    }
+    if constexpr (DQK != DV) {
+#pragma unroll 1
+      for (int i0 = 0; i0 < kVCopies; i0 += kVBatch) {
+        size_t row[kVBatch];
+#pragma unroll
+        for (int i = 0; i < kVBatch; ++i) {
+          const int c = tid + (i0 + i) * kThreads;
+          row[i] = blk.kv_row(min(k0 + c / kVChunks, k_hi - 1));
+        }
+#pragma unroll
+        for (int i = 0; i < kVBatch; ++i) {
+          const int c = tid + (i0 + i) * kThreads;
+          const int col = (c % kVChunks) * kVec;
+          const int dst = (c / kVChunks) * kVStride + col;
+          const int bytes = k0 + c / kVChunks < k_hi ? 16 : 0;
+          cp_async16(vs + dst, blk.v_row(row[i]) + col, bytes);
+        }
       }
     }
   };
@@ -207,20 +238,20 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
     return key < hi && (!Blk::kLower || key >= lo);
   };
 
-  uint32_t qf[kFloat ? 1 : DH / 16][4];         // Q fragments (bf16)
+  uint32_t qf[kFloat ? 1 : DQK / 16][4];        // Q fragments (bf16)
   if constexpr (!kFloat) {
     if (n_tiles > 0) {
       const int row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         ldmatrix_x4(qf[kk], q_s + row * kStride + kk * 16 + (lane >> 4) * 8);
     }
   }
 
-  float o[DH / 8][4];   // bf16: mma layout; fp32: o[2jj] / o[2jj + 1] is
+  float o[DV / 8][4];   // bf16: mma layout; fp32: o[2jj] / o[2jj + 1] is
                         // row g / g + 8 at columns 16 jj + 4 t .. + 3
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_run[2] = {kNegInf, kNegInf};
   float l_run[2] = {0.f, 0.f};                  // this thread's share
@@ -236,7 +267,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
 
     const int k0 = k_lo + it * kN;
     const T* ks = k_s + (it % kStages) * kN * kStride;
-    const T* vs = v_s + (it % kStages) * kN * kStride;
+    const T* vs = v_s + (it % kStages) * kN * kVStride;
 
     float s[kN / 8][4];
 #pragma unroll
@@ -246,7 +277,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
       const float* qa = q_s + (16 * warp + g) * kStride;
       const float* qc = qa + 8 * kStride;
 #pragma unroll 2
-      for (int d = 0; d < DH; d += 4) {
+      for (int d = 0; d < DQK; d += 4) {
         const float4 x0 = *reinterpret_cast<const float4*>(qa + d);
         const float4 x1 = *reinterpret_cast<const float4*>(qc + d);
 #pragma unroll
@@ -265,7 +296,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
       const int krow = (lane & 7) + ((lane >> 4) << 3);
       const int kcol = ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
 #pragma unroll
         for (int nn = 0; nn < kN / 16; ++nn) {
           uint32_t bfr[4];
@@ -334,7 +365,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
 
     if constexpr (kFloat) {
 #pragma unroll
-      for (int jj = 0; jj < DH / 16; ++jj)
+      for (int jj = 0; jj < DV / 16; ++jj)
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           o[2 * jj][x] *= alpha0;
@@ -354,9 +385,9 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
       for (int k = 0; k < kN; ++k) {
         const float pa = ps[g * kP + k], pc = ps[(g + 8) * kP + k];
 #pragma unroll
-        for (int jj = 0; jj < DH / 16; ++jj) {
+        for (int jj = 0; jj < DV / 16; ++jj) {
           const float4 v = *reinterpret_cast<const float4*>(
-              vs + k * kStride + 16 * jj + 4 * t);
+              vs + k * kVStride + 16 * jj + 4 * t);
           o[2 * jj][0] = fmaf(pa, v.x, o[2 * jj][0]);
           o[2 * jj][1] = fmaf(pa, v.y, o[2 * jj][1]);
           o[2 * jj][2] = fmaf(pa, v.z, o[2 * jj][2]);
@@ -370,7 +401,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
       __syncwarp();                             // P read before it is rewritten
     } else {
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[j][0] *= alpha0;
         o[j][1] *= alpha0;
         o[j][2] *= alpha1;
@@ -388,10 +419,10 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int nd = 0; nd < DH / 16; ++nd) {
+        for (int nd = 0; nd < DV / 16; ++nd) {
           uint32_t bfr[4];
           ldmatrix_x4_trans(bfr,
-                            vs + (16 * kk + vrow) * kStride + 16 * nd + vcol);
+                            vs + (16 * kk + vrow) * kVStride + 16 * nd + vcol);
           mma_bf16(o[2 * nd], a, bfr[0], bfr[1]);
           mma_bf16(o[2 * nd + 1], a, bfr[2], bfr[3]);
         }
@@ -415,11 +446,11 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
         blk.m_part[base + j1] = m_run[1];
         blk.l_part[base + j1] = l1;
       }
-      float* a0 = blk.acc_part + (base + j0) * DH;
-      float* a1 = blk.acc_part + (base + j1) * DH;
+      float* a0 = blk.acc_part + (base + j0) * DV;
+      float* a1 = blk.acc_part + (base + j1) * DV;
       if constexpr (kFloat) {
 #pragma unroll
-        for (int jj = 0; jj < DH / 16; ++jj) {
+        for (int jj = 0; jj < DV / 16; ++jj) {
           const int d = 16 * jj + 4 * t;
           if (j0 < M)
             *reinterpret_cast<float4*>(a0 + d) = make_float4(
@@ -431,7 +462,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           const int d = 8 * j + 2 * t;
           if (j0 < M)
             *reinterpret_cast<float2*>(a0 + d) = make_float2(o[j][0], o[j][1]);
@@ -449,7 +480,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
   T* r1 = j1 < M ? blk.out_row(j1) : nullptr;
   if constexpr (kFloat) {
 #pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj) {
+    for (int jj = 0; jj < DV / 16; ++jj) {
       const int d = 16 * jj + 4 * t;
       if (r0)
         *reinterpret_cast<float4*>(r0 + d) =
@@ -462,7 +493,7 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int d = 8 * j + 2 * t;
       if (r0)
         *reinterpret_cast<__nv_bfloat162*>(r0 + d) =

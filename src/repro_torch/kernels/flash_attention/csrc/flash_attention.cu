@@ -7,8 +7,11 @@
 // It computes the same function: for batch b and query head h, attention of
 // query row q_pos over the keys k_pos of kv head h / (Hq / Hkv) with
 // k_pos < kv_len, k_pos <= q_pos when causal, and q_pos - k_pos < window
-// when window > 0.  Online softmax (m, l, acc) in fp32 with scale
-// 1/sqrt(dh); P is rounded to V's type before the PV product while l sums
+// when window > 0.  Q and K rows are DQK wide and V and output rows DV
+// (equal, but for MLA's 192 and 128, which the Pallas kernel does not
+// take; there the reference is the plain chunked attention the MLA prefill
+// calls).  Online softmax (m, l, acc) in fp32 with scale 1/sqrt(DQK); P is
+// rounded to V's type before the PV product while l sums
 // it unrounded; probabilities are multiplied by the mask, so a row that
 // has seen no key stays exact and rows with l == 0 write 0.  Whole key
 // tiles that no row of a query tile can see are never read, as pl.when
@@ -19,7 +22,11 @@
 // (query row, visible key), about 10.7 GFLOP at S = 1024, against 25 MB of
 // q, K, V and output: about 430 FLOP per byte, above the H100's ~295 where
 // the tensor cores rather than HBM become the limit.  So the bound is the
-// operations.
+// operations.  The other served shapes: hymba's 25 over 5 heads at dh 64
+// with a 1024-key window (its keys per row are capped, so the intensity
+// stops growing with S), deepseek-v3's MLA at 128 heads, MHA, DQK 192 and
+// DV 128 (2 * (192 + 128) FLOPs per visible pair), hubert's 16 MHA heads
+// at dh 80, non-causal.
 //
 // What this design does about it: the shared tile of
 // ../../csrc/attention_tile.cuh, the one the paged kernels run.
@@ -38,6 +45,12 @@
 //    kv_len, in every row's future (causal) or behind every row's window
 //    are never read; rows past kv_len + window write 0.  The heaviest
 //    (last) query tiles of all (batch, kv head) launch first.
+//  - DV < DQK (MLA): K and V tiles get shared rows of their own widths,
+//    Q fragments hold DQK / 16 k-steps and the accumulator DV / 8 column
+//    groups, so the PV product and V's loads are DV wide, not padded.  At
+//    (192, 128) in bf16 a block holds 109 KB of shared memory (Q 25.6 KB,
+//    two K stages 51.2, two V stages 34.8), two blocks per SM; in fp32
+//    140 KB, one.
 
 #include "attention_tile.cuh"
 
@@ -47,25 +60,25 @@ using namespace attention_tile;
 
 constexpr int kWarps = 4;     // 64 folded query rows per block
 
-// element strides of the (B, H, S) axes of q, k, v and out; dh is
+// element strides of the (B, H, S) axes of q, k, v and out; the head dim
 // contiguous in all four
 struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
 
 struct Args {
-  const void* q;                // (B, Hq, Sq, dh) by st.q
-  const void* k;                // (B, Hkv, Sk, dh) by st.k
-  const void* v;                // (B, Hkv, Sk, dh) by st.v
-  void* out;                    // (B, Hq, Sq, dh) by st.o
+  const void* q;                // (B, Hq, Sq, DQK) by st.q
+  const void* k;                // (B, Hkv, Sk, DQK) by st.k
+  const void* v;                // (B, Hkv, Sk, DV) by st.v
+  void* out;                    // (B, Hq, Sq, DV) by st.o
   Strides st;
   int r, M, kv_len, causal, window;
-  float scale_log2;             // log2(e) / sqrt(dh)
+  float scale_log2;             // log2(e) / sqrt(DQK)
 };
 
 // Batch b, kv head hk: folded row j is query head hk * r + j % r at
 // position j / r.
-template <typename T, int DH>
+template <typename T>
 struct DenseBlock {
   static constexpr bool kLower = true;
   static constexpr bool kSplits = false;
@@ -114,18 +127,18 @@ struct DenseBlock {
 // Grid (Hkv, B, query tiles): blocks are dispatched x fastest, so the
 // last (heaviest, under a causal mask) query tile of every (batch, kv
 // head) launches first.
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kWarps * 32) flash_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const DenseBlock<T, DH> blk(a, blockIdx.y, blockIdx.x);
-  attend_tile<T, DH, kWarps>(
+  const DenseBlock<T> blk(a, blockIdx.y, blockIdx.x);
+  attend_tile<T, DQK, DV, kWarps>(
       blk, static_cast<int>(gridDim.z - 1 - blockIdx.z), 0, smem);
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Args& a, int B, int Hkv, cudaStream_t stream) {
-  using L = Layout<T, DH, kWarps>;
-  auto* kernel = flash_kernel<T, DH>;
+  using L = Layout<T, DQK, DV, kWarps>;
+  auto* kernel = flash_kernel<T, DQK, DV>;
   static bool configured = false;  // once per instance: above 48 KB of
   if (!configured) {               // shared memory only when asked for
     const cudaError_t err = cudaFuncSetAttribute(
@@ -140,16 +153,21 @@ cudaError_t launch(const Args& a, int B, int Hkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the (DQK, DV) pairs of ops.HEAD_DIMS
 template <typename T>
-cudaError_t dispatch_dh(int dh, const Args& a, int B, int Hkv,
+cudaError_t dispatch_dh(int dqk, int dv, const Args& a, int B, int Hkv,
                         cudaStream_t stream) {
-  switch (dh) {
+  if (dqk == 192 && dv == 128) return launch<T, 192, 128>(a, B, Hkv, stream);
+  if (dqk != dv) return cudaErrorInvalidValue;
+  switch (dqk) {
     case 64:
-      return launch<T, 64>(a, B, Hkv, stream);
+      return launch<T, 64, 64>(a, B, Hkv, stream);
+    case 80:
+      return launch<T, 80, 80>(a, B, Hkv, stream);
     case 96:
-      return launch<T, 96>(a, B, Hkv, stream);
+      return launch<T, 96, 96>(a, B, Hkv, stream);
     case 128:
-      return launch<T, 128>(a, B, Hkv, stream);
+      return launch<T, 128, 128>(a, B, Hkv, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -159,12 +177,12 @@ cudaError_t dispatch_dh(int dh, const Args& a, int B, int Hkv,
 
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (tensor cores).  q, k,
 // v and out share it.  strides: host array of 12 element strides, the
-// (B, H, S) axes of q, k, v, out.  Returns the launch's cudaGetLastError()
-// (0 on success).
+// (B, H, S) axes of q, k, v, out.  dh: q's and k's head dim; dv: v's and
+// out's.  Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B,
                                int Hq, int Hkv, int Sq, int Sk, int dh,
-                               int causal, int window, float scale,
+                               int dv, int causal, int window, float scale,
                                int dtype, void* stream) {
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 ||
@@ -190,9 +208,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_dh<float>(dh, a, B, Hkv, s);
+      return dispatch_dh<float>(dh, dv, a, B, Hkv, s);
     case 1:
-      return dispatch_dh<bf16>(dh, a, B, Hkv, s);
+      return dispatch_dh<bf16>(dh, dv, a, B, Hkv, s);
     default:
       return cudaErrorInvalidValue;
   }

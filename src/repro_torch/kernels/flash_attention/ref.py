@@ -13,10 +13,11 @@ import torch
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (B, Hq, Sq, dh); k, v: (B, Hkv, Sk, dh).  GQA by head folding
-    (query head h reads kv head h // (Hq / Hkv)).  ``window`` > 0 keeps
-    the keys with q_pos - k_pos < window.  Rows that see no key are 0.
-    returns (B, Hq, Sq, dh) in q's dtype."""
+    """q: (B, Hq, Sq, dh); k: (B, Hkv, Sk, dh); v: (B, Hkv, Sk, dv).  GQA
+    by head folding (query head h reads kv head h // (Hq / Hkv)); scale
+    1/sqrt(dh).  ``window`` > 0 keeps the keys with q_pos - k_pos <
+    window.  Rows that see no key are 0.  returns (B, Hq, Sq, dv) in q's
+    dtype."""
     B, Hq, Sq, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     r = Hq // Hkv
@@ -34,4 +35,4 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     w = torch.nan_to_num(w, nan=0.0)        # rows that see no key
     out = torch.einsum("bhrqk,bhkd->bhrqd", w, v.float())
-    return out.reshape(B, Hq, Sq, dh).to(q.dtype)
+    return out.reshape(B, Hq, Sq, v.shape[3]).to(q.dtype)

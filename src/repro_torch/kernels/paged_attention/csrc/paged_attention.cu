@@ -47,7 +47,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(32) paged_decode_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const PagedBlock<T, DH, true> blk(p, blockIdx.z, blockIdx.y);
-  attend_tile<T, DH, 1>(blk, 0, blockIdx.x, smem);
+  attend_tile<T, DH, DH, 1>(blk, 0, blockIdx.x, smem);
 }
 
 template <typename T, int DH>
@@ -58,7 +58,7 @@ paged_decode_merge_kernel(const Params p) {
 
 template <typename T, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t kBytes = Layout<T, DH, 1>::kBytes;
+  constexpr size_t kBytes = Layout<T, DH, DH, 1>::kBytes;
   auto* kernel = paged_decode_kernel<T, DH>;
   static bool configured = false;  // once per instance: above 48 KB of
   if (!configured) {               // shared memory only when asked for

@@ -55,7 +55,7 @@ paged_prefill_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const PagedBlock<T, DH, false> blk(p, blockIdx.z, blockIdx.y);
   const int n_qt = (p.M + 16 * kWarps - 1) / (16 * kWarps);
-  attend_tile<T, DH, kWarps>(
+  attend_tile<T, DH, DH, kWarps>(
       blk, n_qt - 1 - static_cast<int>(blockIdx.x) / p.n_splits,
       static_cast<int>(blockIdx.x) % p.n_splits, smem);
 }
@@ -68,7 +68,7 @@ paged_prefill_merge_kernel(const Params p) {
 
 template <typename T, int DH, int kWarps>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using L = Layout<T, DH, kWarps>;
+  using L = Layout<T, DH, DH, kWarps>;
   auto* kernel = paged_prefill_kernel<T, DH, kWarps>;
   static bool configured = false;  // once per instance: above 48 KB of
   if (!configured) {               // shared memory only when asked for

@@ -1,24 +1,34 @@
-"""Model assembly for the serving steps.
+"""Model assembly for the serving steps and the model functions.
 
 Parameters are a plain dict mirroring the reference's pytree:
 ``{"groups": [per-group dict with a leading layer axis], "embed",
-"final_norm", "lm_head"}`` (see ``repro_torch.weights``).  Every forward
-pass runs the one layer loop ``_layer_stack`` (the reference's scanned
-``backbone`` / ``_apply_full`` / ``_apply_decode*`` bodies); what differs
-is the attention each pass hands it.  Pools are updated in place, but
-every paged step still returns ``(logits, kpools, vpools)`` so the engine
-reads like the reference.
+"final_norm", "lm_head"}`` (plus ``in_proj``/``pos_embed`` for the audio
+stub and ``img_proj`` for the vision stub; see ``repro_torch.weights``).
+Every forward pass runs the one layer loop ``_layer_stack`` (the
+reference's scanned ``backbone`` / ``_apply_full`` / ``_apply_decode*``
+bodies); what differs is the attention and the recurrent-block step each
+pass hands it.  Pools are updated in place, but every paged step still
+returns ``(logits, kpools, vpools)`` so the engine reads like the
+reference.
+
+Layer kinds (``layer_groups``): ``gqa_mlp`` / ``gqa_moe``; ``mla_mlp`` /
+``mla_moe`` (deepseek-v3's latent attention); ``hybrid`` (hymba:
+attention and an SSM in parallel on the same input, each through its own
+rmsnorm, mean-fused); ``xlstm_pair`` (an mLSTM then an sLSTM block, each
+with its own residual).
 
 Ported: the paged steps (the fused step, and the split schedule's
-prefill-chunk and decode calls, each over per-device pool shards) and the
-dense oracle model (``prefill`` through the flash-attention kernel,
-``decode_step`` against dense caches, "carry" and "stacked"), each
-over dense MLP or MoE layers.  The paged steps' traced twins
-(``*_traced``, the engine's per-module probe) run the same layer loop
-with a tracer: one device-synchronised span per module (``embed``,
-``attention`` per layer, ``mlp`` per layer, ``lm_head`` with the final
-rmsnorm), so the untraced calls run the same operations in the same
-order.  Training waits for a later slice (ROADMAP Queue A, item 8).
+prefill-chunk and decode calls, each over per-device pool shards), for
+pure-GQA full-attention stacks with a token frontend; and the dense model
+functions for every kind and frontend — ``prefill`` (attention through
+the flash-attention kernel), ``decode_step`` against dense caches
+("carry" and "stacked") and ``forward_hidden`` (the encoder's entry
+point).  The paged steps' traced twins (``*_traced``, the engine's
+per-module probe) run the same layer loop with a tracer: one
+device-synchronised span per module (``embed``, ``attention`` per layer,
+``mlp`` per layer, ``lm_head`` with the final rmsnorm), so the untraced
+calls run the same operations in the same order.  Training is not
+ported yet (ROADMAP Queue A, item 8).
 """
 
 from __future__ import annotations
@@ -29,8 +39,10 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.device import resolve
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import cdtype, rmsnorm
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry.tracer import Tracer
 
@@ -39,6 +51,15 @@ Cache = Dict[str, Any]
 Pools = Dict[int, torch.Tensor]
 # the untraced calls' tracer: its spans and syncs are no-ops
 _UNTRACED = Tracer(enabled=False)
+# the recurrent blocks: full-sequence and one-token steps, where a group's
+# cache holds each block's state (None: the group's own dict) and its keys
+_RECURRENT = {
+    "ssm": (ssm_mod.ssm_forward, ssm_mod.ssm_decode, None, ("conv", "ssm")),
+    "mlstm": (xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode, "m",
+              ("C", "n", "m")),
+    "slstm": (xlstm_mod.slstm_forward, xlstm_mod.slstm_decode, "s",
+              ("c", "n", "h", "m")),
+}
 
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
@@ -74,37 +95,68 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
     return out
 
 
-def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
-    """(group, index within the group, attention window) of every layer,
-    in order."""
-    return [(gi, li, win) for gi, (_kind, n, win)
+def _layer_slots(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
+    """(kind, group, index within the group, attention window) of every
+    layer, in order."""
+    return [(kind, gi, li, win) for gi, (kind, n, win)
             in enumerate(layer_groups(cfg)) for li in range(n)]
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                 dev: torch.device) -> Cache:
+    if kind == "xlstm_pair":
+        return {"m": xlstm_mod.mlstm_cache_init(cfg, batch, dev),
+                "s": xlstm_mod.slstm_cache_init(cfg, batch, dev)}
+    if kind.startswith("mla"):
+        c = attn.mla_cache_init(cfg, batch, max_seq, dev)
+    else:
+        c = attn.gqa_cache_init(cfg, batch, max_seq, dev)
+    if kind == "hybrid":
+        c.update(ssm_mod.ssm_cache_init(cfg, batch, dev))
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Cache:
-    """Dense decode caches: ``{"groups": [per-group {"k", "v"} with shape
-    (n_layers, batch, max_seq, Hkv, dh)], "pos": (batch,) int32}``."""
+    """Dense decode caches: ``{"groups": [per-group cache, every leaf with
+    a leading layer axis], "pos": (batch,) int32}``.  A group's cache by
+    kind: attention ``k``, ``v`` (n, batch, max_seq, Hkv, dh); MLA
+    ``ckv``, ``krope`` (n, batch, max_seq, c / dr); hybrid both ``k``,
+    ``v`` and the SSM's ``conv``, ``ssm``; xLSTM ``m`` (mLSTM: ``C``,
+    ``n``, ``m``) and ``s`` (sLSTM: ``c``, ``n``, ``h``, ``m``)."""
     dev = resolve(device)
     groups = []
     for kind, n, _win in layer_groups(cfg):
-        _check_kind(kind)
-        one = attn.gqa_cache_init(cfg, batch, max_seq, dev)
-        groups.append({k: v[None].repeat((n,) + (1,) * v.ndim)
-                       for k, v in one.items()})
+        one = _layer_cache(cfg, kind, batch, max_seq, dev)
+        groups.append(_map(one, lambda v: v[None].repeat(
+            (n,) + (1,) * v.ndim)))
     return {"groups": groups,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
 def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict
                  ) -> torch.Tensor:
-    """Raw model inputs -> the (B, S, d) hidden-state stream (the text
-    frontend: a token embedding lookup)."""
-    if cfg.frontend in ("audio_stub", "vision_stub"):
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported (ROADMAP Queue A, "
-            f"item 7: encoder-only, audio and vision stubs)")
-    return params["embed"][batch["tokens"].long()]
+    """Raw model inputs -> the (B, S, d) hidden-state stream.  Text: a
+    token embedding lookup of ``tokens``; audio stub: ``frames`` (B, S, d)
+    @ ``in_proj`` plus the learned positions; vision stub: ``image_embeds``
+    (B, P, d) @ ``img_proj`` put in front of the token embeddings, so
+    positions count the prefix."""
+    dt = cdtype(cfg)
+    if cfg.frontend == "audio_stub":
+        x = batch["frames"].to(dt) @ params["in_proj"]
+        if cfg.max_pos_embed:
+            x = x + params["pos_embed"][None, :x.shape[1]]
+        return x
+    tok = params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "vision_stub":
+        img = batch["image_embeds"].to(dt) @ params["img_proj"]
+        return torch.cat([img, tok], dim=1)
+    return tok
 
 
 def _lm_head(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -134,13 +186,6 @@ def supports_fused_step(cfg: ModelConfig) -> bool:
     return supports_paged_decode(cfg) and supports_paged_prefill(cfg)
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in ("gqa_mlp", "gqa_moe"):
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported (ROADMAP Queue A, item 7: "
-            f"other model families)")
-
-
 def _layer_slice(tree: Params, li: int) -> Params:
     """Layer ``li`` of a group's stacked parameters (nested dicts, such
     as the MoE layer's shared experts, included)."""
@@ -158,38 +203,60 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 
 def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                 attend, tracer: Tracer = _UNTRACED,
-                 span_args=None) -> torch.Tensor:
-    """Run every layer on ``x``: rmsnorm, ``attend(p_attn, xn, idx)`` (the
-    attention output; it writes layer ``idx`` of the pools), residual,
-    rmsnorm, the MLP or MoE FFN, residual.  With an enabled ``tracer``
-    the attention module (its span carrying ``span_args``) and the FFN
-    each run in a span that closes after the device finished them.
-    Returns the hidden states before the final rmsnorm."""
-    layer0 = 0
-    for gi, (kind, n, _win) in enumerate(layer_groups(cfg)):
-        _check_kind(kind)
+                 attend, tracer: Tracer = _UNTRACED, span_args=None,
+                 recur=None, aux: List = None) -> torch.Tensor:
+    """Run every layer on ``x``.  An attention layer: rmsnorm,
+    ``attend(p_attn, xn, idx)`` (the attention output of layer ``idx``; it
+    writes that layer's cache or pools), in a hybrid layer beside
+    ``recur("ssm", p_ssm, xn, idx)`` and mean-fused with it after a
+    rmsnorm of each, residual; then rmsnorm, the MLP or MoE FFN, residual.
+    An xLSTM pair: ``recur("mlstm", ...)`` then ``recur("slstm", ...)``,
+    each on its own rmsnorm with its own residual.  ``recur(block, p, xn,
+    idx)`` returns the block's output and keeps its state as the pass
+    needs.  ``aux`` collects the MoE layers' load-balance losses.  With an
+    enabled ``tracer`` each module (``attention``, its span carrying
+    ``span_args``; ``ssm``, ``mlstm``, ``slstm``; ``mlp``) runs in a span
+    that closes after the device finished it.  Returns the hidden states
+    before the final rmsnorm."""
+    eps = cfg.norm_eps
+
+    def block(name, p, xn, idx, args=None):
+        with tracer.span(name, args=args):
+            out = (attend(p, xn, idx) if name == "attention"
+                   else recur(name, p, xn, idx))
+            tracer.sync(out)
+        return out
+
+    for idx, (kind, gi, li, _win) in enumerate(_layer_slots(cfg)):
         gp = params["groups"][gi]
-        for li in range(n):
-            xn = rmsnorm(x, gp["attn_norm"][li], cfg.norm_eps)
-            p_attn = _layer_slice(gp["attn"], li)
-            with tracer.span("attention", args=span_args):
-                a_out = attend(p_attn, xn, layer0 + li)
-                tracer.sync(a_out)
-            x = x + a_out
-            if "mlp" in gp:
-                xn = rmsnorm(x, gp["mlp_norm"][li], cfg.norm_eps)
-                p_mlp = _layer_slice(gp["mlp"], li)
-                with tracer.span("mlp"):
-                    if kind == "gqa_moe":
-                        # the load-balance loss is for training; serving
-                        # drops it, as the reference's serving paths do
-                        m_out = mlp_mod.moe_apply(cfg, p_mlp, xn)[0]
-                    else:
-                        m_out = mlp_mod.mlp_apply(cfg, p_mlp, xn)
-                    tracer.sync(m_out)
-                x = x + m_out
-        layer0 += n
+        if kind == "xlstm_pair":
+            for name, norm in (("mlstm", "m_norm"), ("slstm", "s_norm")):
+                xn = rmsnorm(x, gp[norm][li], eps)
+                x = x + block(name, _layer_slice(gp[name], li), xn, idx)
+            continue
+        xn = rmsnorm(x, gp["attn_norm"][li], eps)
+        a_out = block("attention", _layer_slice(gp["attn"], li), xn, idx,
+                      span_args)
+        if kind == "hybrid":
+            s_out = block("ssm", _layer_slice(gp["ssm"], li), xn, idx)
+            a_out = 0.5 * (rmsnorm(a_out, gp["attn_out_norm"][li], eps)
+                           + rmsnorm(s_out, gp["ssm_out_norm"][li], eps))
+        x = x + a_out
+        if "mlp" in gp:
+            xn = rmsnorm(x, gp["mlp_norm"][li], eps)
+            p_mlp = _layer_slice(gp["mlp"], li)
+            with tracer.span("mlp"):
+                if kind.endswith("moe"):
+                    # the load-balance loss is for training
+                    # (forward_hidden returns it); the serving steps drop
+                    # it, as the reference's do
+                    m_out, loss = mlp_mod.moe_apply(cfg, p_mlp, xn)
+                    if aux is not None:
+                        aux.append(loss)
+                else:
+                    m_out = mlp_mod.mlp_apply(cfg, p_mlp, xn)
+                tracer.sync(m_out)
+            x = x + m_out
     return x
 
 
@@ -208,67 +275,145 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
     return logits
 
 
+def _full_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                caches: List[Cache] = None, aux: List = None
+                ) -> torch.Tensor:
+    """Every layer over the whole (B, S) block at positions [0, S):
+    attention through the flash-attention kernel (``gqa_full`` or
+    ``mla_full``), the recurrent blocks' full-sequence scans.  With
+    ``caches`` (the groups of ``init_cache``), each layer's cache entries
+    are written there: K/V or the latent at [0, S), the recurrent states
+    after the last token.  Returns the hidden states before the final
+    rmsnorm."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    slots = _layer_slots(cfg)
+
+    def attend(p_attn, xn, idx):
+        kind, gi, li, win = slots[idx]
+        full = attn.mla_full if kind.startswith("mla") else attn.gqa_full
+        out, entries = full(cfg, p_attn, xn, positions, win)
+        if caches is not None:
+            for key, val in entries.items():
+                caches[gi][key][li, :, :S] = val
+        return out
+
+    def recur(block, p, xn, idx):
+        _kind, gi, li, _win = slots[idx]
+        forward, _decode, sub, _keys = _RECURRENT[block]
+        out, state = forward(cfg, p, xn)
+        if caches is not None:
+            holder = caches[gi][sub] if sub else caches[gi]
+            for key, val in state.items():
+                holder[key][li] = val
+        return out
+
+    return _layer_stack(cfg, params, x, attend, recur=recur, aux=aux)
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
             lengths: torch.Tensor = None) -> Tuple[torch.Tensor, Cache]:
-    """Process the full prompt block (B, S) with dense attention (the
-    flash-attention kernel per layer); returns (last-token logits (B,
-    vocab) fp32, dense caches holding positions [0, S) and zeros up to
-    ``max_seq``, ``pos`` = lengths).  ``lengths`` (B,) marks true prompt
-    lengths of right-padded rows (default S)."""
+    """Process the full prompt block (``embed_inputs``: B rows of S
+    positions, a vision prefix included) with dense attention (the
+    flash-attention kernel per attention layer) and the recurrent blocks'
+    scans; returns (last-token logits (B, vocab) fp32, dense caches: K/V
+    or the MLA latent at positions [0, S) and zeros up to ``max_seq``,
+    recurrent states as the scans left them, ``pos`` = lengths).
+    ``lengths`` (B,) marks true lengths of right-padded rows (default S);
+    as in the reference, the recurrent states have run over the padding
+    too."""
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
-    positions = torch.arange(S, device=x.device)[None, :]
     caches = init_cache(cfg, B, max_seq, x.device)["groups"]
-    slots = _layer_slots(cfg)
-
-    def attend(p_attn, xn, idx):
-        gi, li, win = slots[idx]
-        out, c = attn.gqa_full(cfg, p_attn, xn, positions, win)
-        caches[gi]["k"][li, :, :S] = c["k"]
-        caches[gi]["v"][li, :, :S] = c["v"]
-        return out
-
-    h = _layer_stack(cfg, params, x, attend)
+    h = _full_stack(cfg, params, x, caches)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     logits = _logits(cfg, params, h, lengths - 1)
     return logits, {"groups": caches, "pos": lengths.to(torch.int32)}
 
 
+def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final hidden states (B, S, d) after the final rmsnorm, and the
+    MoE layers' summed load-balance loss (fp32 scalar; 0 without MoE):
+    the encoder's entry point (hubert has no decode step)."""
+    x = embed_inputs(cfg, params, batch)
+    aux: List[torch.Tensor] = []
+    h = _full_stack(cfg, params, x, aux=aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for loss in aux:
+        total = total + loss
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps), total
+
+
+def _nest(flat: Dict[Tuple[str, ...], torch.Tensor]) -> Cache:
+    """{key path: tensor} as nested dicts."""
+    out: Cache = {}
+    for path, t in flat.items():
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = t
+    return out
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step for all rows against dense caches.  tokens: (B, 1)
     int.  ``cfg.decode_impl`` selects the cache update, as in the
-    reference: "carry" writes each layer's token K/V in place into the
-    given stacked caches (which the returned cache holds); "stacked"
-    leaves them as they were and returns new stacked caches.
-    Returns (logits (B, vocab) fp32, cache with ``pos`` + 1)."""
-    assert not cfg.is_encoder_only, "encoder-only archs have no decode step"
+    reference: "carry" writes each layer's token K/V (or latent) and its
+    recurrent states in place into the given stacked caches (which the
+    returned cache holds); "stacked" leaves them as they were and returns
+    new stacked caches.  Returns (logits (B, vocab) fp32, cache with
+    ``pos`` + 1).  Encoder-only configs have no decode step."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name}: encoder-only archs have no decode "
+                         f"step (use forward_hidden)")
     pos = cache["pos"]
     groups = cache["groups"]
     slots = _layer_slots(cfg)
     carry = cfg.decode_impl == "carry"
-    stacked: List[Dict[str, list]] = [{"k": [], "v": []} for _ in groups]
+    # "stacked": each group's new per-layer entries by key path
+    stacked: List[Dict[Tuple[str, ...], list]] = [{} for _ in groups]
+
+    def keep(gi, path, val):
+        stacked[gi].setdefault(path, []).append(val)
 
     def attend(p_attn, xn, idx):
-        gi, li, win = slots[idx]
+        kind, gi, li, win = slots[idx]
         g = groups[gi]
+        mla = kind.startswith("mla")
+        keys = ("ckv", "krope") if mla else ("k", "v")
         if carry:
-            return attn.gqa_decode_carry(cfg, p_attn, xn, g["k"], g["v"], li,
-                                         pos, win)[0]
-        out, c = attn.gqa_decode(cfg, p_attn, xn,
-                                 {"k": g["k"][li], "v": g["v"][li]}, pos,
-                                 win)
-        stacked[gi]["k"].append(c["k"])
-        stacked[gi]["v"].append(c["v"])
+            fn = attn.mla_decode_carry if mla else attn.gqa_decode_carry
+            return fn(cfg, p_attn, xn, g[keys[0]], g[keys[1]], li, pos,
+                      win)[0]
+        fn = attn.mla_decode if mla else attn.gqa_decode
+        out, c = fn(cfg, p_attn, xn, {k: g[k][li] for k in keys}, pos, win)
+        for k in keys:
+            keep(gi, (k,), c[k])
         return out
 
-    h = _layer_stack(cfg, params, _embed(params, tokens), attend)
+    def recur(block, p, xn, idx):
+        _kind, gi, li, _win = slots[idx]
+        _forward, decode, sub, keys = _RECURRENT[block]
+        holder = groups[gi][sub] if sub else groups[gi]
+        out, new = decode(cfg, p, xn, {k: holder[k][li] for k in keys})
+        for k in keys:
+            if carry:
+                holder[k][li] = new[k]
+            else:
+                keep(gi, (sub, k) if sub else (k,), new[k])
+        return out
+
+    h = _layer_stack(cfg, params, _embed(params, tokens), attend,
+                     recur=recur)
     logits = _logits(cfg, params, h)
     if not carry:
-        groups = [{k: torch.stack(v) for k, v in g.items()} for g in stacked]
+        groups = [_nest({k: torch.stack(v) for k, v in g.items()})
+                  for g in stacked]
     return logits, {"groups": groups, "pos": pos + 1}
 
 

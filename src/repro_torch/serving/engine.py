@@ -320,9 +320,11 @@ class InferenceEngine:
                              f"'split'")
         if not T.supports_fused_step(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves pure-GQA, full-attention, "
-                f"token-frontend configs; this one needs another model "
-                f"family (ROADMAP Queue A item 7)")
+                f"{cfg.name}: the engine serves pure-GQA, full-attention, "
+                f"token-frontend configs, as the reference's does; MLA, "
+                f"SSM-hybrid, xLSTM, sliding-window and stub-frontend "
+                f"configs run through the model functions (prefill, "
+                f"decode_step, forward_hidden; see ROADMAP Queue A item 7)")
 
     # --------------------------------------------------------------- cluster
     # ``cluster`` is a property so the device_id -> Device map the modeled-

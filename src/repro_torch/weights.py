@@ -2,8 +2,11 @@
 
 The layout mirrors the reference's pytree (``repro.models.transformer.
 init_params``): ``{"groups": [one dict per layer group, every leaf
-stacked on a leading layer axis], "embed", "final_norm", "lm_head"}``,
-weight matrices ``(in, out)`` so ``x @ W`` matches ``x @ W`` there.
+stacked on a leading layer axis], "embed", "final_norm", "lm_head"}``
+(the audio stub has ``in_proj`` and ``pos_embed`` instead of ``embed``,
+the vision stub ``img_proj`` beside it), weight matrices ``(in, out)`` so
+``x @ W`` matches ``x @ W`` there; MLA's ``wuk``/``wuv`` are (c, H, d)
+and the SSM's ``conv_w`` (d_inner, conv), as there.
 
   * :func:`from_jax_params` copies the reference's parameters, handed
     over as numpy arrays — the bridge the parity tests run both packages
@@ -51,11 +54,11 @@ def from_jax_params(cfg: ModelConfig, params_np: Params,
     values."""
     dev = resolve(device)
     out = {"groups": [_tree(g, lambda a: _to_torch(a, dev))
-                      for g in params_np["groups"]],
-           "embed": _to_torch(params_np["embed"], dev),
-           "final_norm": _to_torch(params_np["final_norm"], dev)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = _to_torch(params_np["lm_head"], dev)
+                      for g in params_np["groups"]]}
+    for key in ("embed", "final_norm", "lm_head", "in_proj", "pos_embed",
+                "img_proj"):
+        if key in params_np:
+            out[key] = _to_torch(params_np[key], dev)
     return out
 
 
@@ -103,43 +106,130 @@ def _moe(gen: torch.Generator, cfg: ModelConfig, L: int, dt: torch.dtype,
     return m
 
 
+def _ones(dev: torch.device, *shape) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.float32, device=dev)
+
+
+def _gqa(gen: torch.Generator, cfg: ModelConfig, L: int, dt: torch.dtype,
+         dev: torch.device) -> Params:
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a = {"wq": _dense(gen, L, d, H * dh, dt, dev),
+         "wk": _dense(gen, L, d, Hkv * dh, dt, dev),
+         "wv": _dense(gen, L, d, Hkv * dh, dt, dev),
+         "wo": _dense(gen, L, H * dh, d, dt, dev)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * dh), ("bk", Hkv * dh),
+                            ("bv", Hkv * dh)):
+            a[name] = torch.zeros((L, width), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        a["q_norm"] = _ones(dev, L, dh)
+        a["k_norm"] = _ones(dev, L, dh)
+    return a
+
+
+def _mla(gen: torch.Generator, cfg: ModelConfig, L: int, dt: torch.dtype,
+         dev: torch.device) -> Params:
+    """The reference's ``mla_init``: the up-projections ``wuk``/``wuv``
+    drawn as (c, H * d) with fan-in c and kept as (c, H, d)."""
+    d, H, c = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wdq": _dense(gen, L, d, cfg.q_lora_rank, dt, dev),
+            "q_norm": _ones(dev, L, cfg.q_lora_rank),
+            "wuq": _dense(gen, L, cfg.q_lora_rank, H * (dn + dr), dt, dev),
+            "wdkv": _dense(gen, L, d, c + dr, dt, dev),
+            "kv_norm": _ones(dev, L, c),
+            "wuk": _dense(gen, L, c, H * dn, dt, dev).view(L, c, H, dn),
+            "wuv": _dense(gen, L, c, H * dv, dt, dev).view(L, c, H, dv),
+            "wo": _dense(gen, L, H * dv, d, dt, dev)}
+
+
+def _ssm(gen: torch.Generator, cfg: ModelConfig, L: int, dt: torch.dtype,
+         dev: torch.device) -> Params:
+    """The reference's ``ssm_init``: ``conv_w`` N(0, 1) / sqrt(conv),
+    ``dt_bias`` the inverse softplus of 0.01, S4D-real ``A_log`` =
+    log(1..n), ``D`` ones (the last three in fp32)."""
+    d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_dt_rank, cfg.ssm_conv)
+    f32 = dict(dtype=torch.float32, device=dev)
+    conv_w = torch.randn((L, di, k), generator=gen, **f32) / math.sqrt(k)
+    a_init = torch.arange(1, n + 1, **f32).expand(L, di, n)
+    return {"in_proj": _dense(gen, L, d, 2 * di, dt, dev),
+            "conv_w": conv_w.to(dt),
+            "conv_b": torch.zeros((L, di), dtype=dt, device=dev),
+            "x_proj": _dense(gen, L, di, r + 2 * n, dt, dev),
+            "dt_proj": _dense(gen, L, r, di, dt, dev),
+            "dt_bias": torch.full((L, di), math.log(math.expm1(0.01)),
+                                  **f32),
+            "A_log": torch.log(a_init),
+            "D": _ones(dev, L, di),
+            "out_proj": _dense(gen, L, di, d, dt, dev)}
+
+
+def _xlstm_pair(gen: torch.Generator, cfg: ModelConfig, L: int,
+                dt: torch.dtype, dev: torch.device) -> Params:
+    """The reference's ``mlstm_init`` and ``slstm_init``: gate weights in
+    fp32, forget biases 3 (the forget gate open), the sLSTM's diagonal
+    recurrence 0."""
+    d, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    f32 = torch.float32
+    full = lambda width, v: torch.full((L, width), v, dtype=f32, device=dev)
+    m = {"wq": _dense(gen, L, d, H * dh, dt, dev),
+         "wk": _dense(gen, L, d, H * dh, dt, dev),
+         "wv": _dense(gen, L, d, H * dh, dt, dev),
+         "wi": _dense(gen, L, d, H, f32, dev),
+         "wf": _dense(gen, L, d, H, f32, dev),
+         "f_bias": full(H, 3.0),
+         "wo_gate": _dense(gen, L, d, H * dh, dt, dev),
+         "out_proj": _dense(gen, L, H * dh, d, dt, dev)}
+    s = {"wz": _dense(gen, L, d, d, dt, dev),
+         "wi": _dense(gen, L, d, d, f32, dev),
+         "wf": _dense(gen, L, d, d, f32, dev),
+         "wo_gate": _dense(gen, L, d, d, dt, dev),
+         "f_bias": full(d, 3.0),
+         "r_diag": full(d, 0.0),
+         "out_proj": _dense(gen, L, d, d, dt, dev)}
+    return {"m_norm": _ones(dev, L, d), "mlstm": m,
+            "s_norm": _ones(dev, L, d), "slstm": s}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Seeded parameters of the serving path's GQA stack, dense MLP or
-    MoE layers: truncated-normal fan-in weights, embeddings N(0, 1) *
-    0.02, unit norm scales and zero qkv biases, as the reference
-    initialises them."""
+    """Seeded parameters of every layer kind and frontend, initialised as
+    the reference initialises them: truncated-normal fan-in weights,
+    embeddings (and learned positions) N(0, 1) * 0.02, unit norm scales,
+    zero biases, and the SSM's and xLSTM's own constants."""
     dev = resolve(device)
     dt = cdtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
+    d = cfg.d_model
     groups = []
     for kind, L, _win in layer_groups(cfg):
-        if kind not in ("gqa_mlp", "gqa_moe"):
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported (ROADMAP Queue A, "
-                f"item 7: other model families)")
-        a = {"wq": _dense(gen, L, d, H * dh, dt, dev),
-             "wk": _dense(gen, L, d, Hkv * dh, dt, dev),
-             "wv": _dense(gen, L, d, Hkv * dh, dt, dev),
-             "wo": _dense(gen, L, H * dh, d, dt, dev)}
-        if cfg.qkv_bias:
-            for name, width in (("bq", H * dh), ("bk", Hkv * dh),
-                                ("bv", Hkv * dh)):
-                a[name] = torch.zeros((L, width), dtype=dt, device=dev)
-        if cfg.qk_norm:
-            a["q_norm"] = ones(L, dh)
-            a["k_norm"] = ones(L, dh)
-        g = {"attn_norm": ones(L, d), "attn": a, "mlp_norm": ones(L, d)}
-        if kind == "gqa_moe":
+        if kind == "xlstm_pair":
+            groups.append(_xlstm_pair(gen, cfg, L, dt, dev))
+            continue
+        a = (_mla if kind.startswith("mla") else _gqa)(gen, cfg, L, dt, dev)
+        g = {"attn_norm": _ones(dev, L, d), "attn": a}
+        if kind == "hybrid":
+            g.update(ssm=_ssm(gen, cfg, L, dt, dev),
+                     attn_out_norm=_ones(dev, L, d),
+                     ssm_out_norm=_ones(dev, L, d))
+        g["mlp_norm"] = _ones(dev, L, d)
+        if kind.endswith("moe"):
             g["mlp"] = _moe(gen, cfg, L, dt, dev)
         elif cfg.d_ff:
             g["mlp"] = _mlp(gen, cfg, L, cfg.d_ff, dt, dev)
         groups.append(g)
-    embed = (torch.randn((cfg.vocab_size, d), generator=gen,
-                         dtype=torch.float32, device=dev) * 0.02).to(dt)
-    params = {"groups": groups, "embed": embed,
-              "final_norm": ones(d)}
+    normal = lambda *s: (torch.randn(s, generator=gen, dtype=torch.float32,
+                                     device=dev) * 0.02).to(dt)
+    params = {"groups": groups}
+    if cfg.frontend == "audio_stub":
+        params["in_proj"] = _dense(gen, 1, d, d, dt, dev)[0]
+        if cfg.max_pos_embed:
+            params["pos_embed"] = normal(cfg.max_pos_embed, d)
+    else:
+        params["embed"] = normal(cfg.vocab_size, d)
+        if cfg.frontend == "vision_stub":
+            params["img_proj"] = _dense(gen, 1, d, d, dt, dev)[0]
+    params["final_norm"] = _ones(dev, d)
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(gen, 1, d, cfg.vocab_size, dt, dev)[0]
     return params

@@ -406,6 +406,43 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa_ops.flash_attention(q, k.transpose(2, 3), v)
 
 
+# the families' shapes: (B, Hq, Hkv, S, dh, dv, causal, window) — MLA's
+# q/k 192 with v 128 (MHA), hubert's dh 80 non-causal at S not a tile
+# multiple, hymba's 25 over 5 heads at dh 64 with a window that cuts
+FAMILY_FLASH_SHAPES = [
+    (1, 8, 8, 300, 192, 128, True, 0),
+    (2, 8, 8, 130, 192, 128, False, 0),
+    (2, 16, 16, 400, 80, 80, False, 0),
+    (1, 4, 4, 100, 80, 80, True, 32),
+    (1, 25, 5, 300, 64, 64, True, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", range(len(FAMILY_FLASH_SHAPES)))
+def test_flash_kernel_at_family_shapes(cuda, shape, dtype):
+    B, Hq, Hkv, S, dh, dv, causal, window = FAMILY_FLASH_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(shape)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = rnd(B, Hq, S, dh), rnd(B, Hkv, S, dh), rnd(B, Hkv, S, dv)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.shape == ref.shape == (B, Hq, S, dv)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+        err.max().item()
+
+
+def test_flash_wrapper_takes_only_its_head_dim_pairs(cuda):
+    """(192, 128) is built; v padded or cut to another width is not."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 192)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, k, v[..., :96].contiguous())
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q[..., :128], k[..., :128].contiguous(), v)
+
+
 # ----------------------------------------------------------- MoE FFN
 @pytest.mark.parametrize("shared", [0, 1])
 def test_moe_apply_on_the_card_matches_the_cpu_without_syncing(cuda, shared):
@@ -513,3 +550,70 @@ def test_profile_attention_on_the_card(cuda):
     assert len({(h, g) for h, g, _t in s}) == 64
     _model, r2 = fit_attention_model(s)
     assert r2 <= 1.0
+
+
+# ------------------------------------------ families off the engine's path
+# the reduced configs at head dims the flash kernel is built for
+FAMILY_GPU = {
+    "hymba-1.5b": dict(head_dim=64),
+    "deepseek-v3-671b": dict(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                             v_head_dim=128, head_dim=192),
+    "xlstm-350m": {},
+    "internvl2-1b": dict(head_dim=64),
+}
+
+
+@pytest.mark.parametrize("impl", ["carry", "stacked"])
+@pytest.mark.parametrize("name", sorted(FAMILY_GPU))
+def test_family_on_the_card_emits_the_cpu_tokens(cuda, name, impl):
+    """The reduced fp32 family on the card (the flash kernel in prefill)
+    against the same model on the CPU: 8 greedy tokens identical."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config(name), decode_impl=impl,
+                              **FAMILY_GPU[name])
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (3, 40)))}
+    if cfg.frontend == "vision_stub":
+        batch["image_embeds"] = torch.randn(3, cfg.n_prefix_embeds,
+                                            cfg.d_model)
+    P = cfg.n_prefix_embeds
+    lens = torch.tensor([40 + P, 31 + P, 17 + P], dtype=torch.int32)
+
+    def generate(dev):
+        before = fa_ops.LAUNCHES["flash_attention"]
+        p, b = _to(params, dev), _to(batch, dev)
+        logits, cache = T.prefill(cfg, p, b, 40 + P + 8, lens.to(dev))
+        if dev != "cpu":
+            assert fa_ops.LAUNCHES["flash_attention"] - before == (
+                0 if cfg.xlstm_pattern else cfg.n_layers)
+        toks = [logits.argmax(-1)]
+        for _ in range(7):
+            logits, cache = T.decode_step(cfg, p, cache, toks[-1][:, None])
+            toks.append(logits.argmax(-1))
+        return torch.stack(toks, 1).cpu()
+
+    assert torch.equal(generate(cuda), generate("cpu"))
+
+
+def test_hubert_on_the_card_matches_the_cpu(cuda):
+    """The reduced fp32 encoder (dh 80, non-causal) through
+    ``forward_hidden`` on the card against the CPU: hidden states within
+    1e-4."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("hubert-xlarge"), head_dim=80)
+    params = init_params(cfg, 0, device="cpu")
+    frames = torch.randn(2, 150, cfg.d_model,
+                         generator=torch.Generator().manual_seed(0))
+    want, _ = T.forward_hidden(cfg, params, {"frames": frames})
+    got, _ = T.forward_hidden(cfg, _to(params, cuda),
+                              {"frames": frames.to(cuda)})
+    assert (got.cpu() - want).abs().max() <= 1e-4

@@ -130,8 +130,8 @@ def test_config_copies_match_reference():
         == dataclasses.asdict(jget_config("qwen3-14b").reduced())
     assert dataclasses.asdict(get_config("qwen3-14b").profile()) \
         == dataclasses.asdict(jget_config("qwen3-14b").profile())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek-v3-671b")
+    assert dataclasses.asdict(get_config("deepseek-v3-671b")) \
+        == dataclasses.asdict(jget_config("deepseek-v3-671b"))
 
 
 def test_cost_and_profiler_copies_match_reference():
