@@ -6,9 +6,10 @@
 Phases, in order; any failure exits nonzero:
 
   1. card:    the card's name and power limit (nvidia-smi); TF32 off.
-  2. build:   the three kernels compiled from
-              src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/,
-              one nvcc process per source, all started together.
+  2. build:   the four kernel sources compiled from
+              src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/
+              (B1, B2, B3 and B3's backward), one nvcc process per source,
+              all started together.
   3. kernels: each kernel against its plain PyTorch version, timed with
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
@@ -31,7 +32,17 @@ Phases, in order; any failure exits nonzero:
               reads the wrapper's host time per call; with --profile the
               kernel table's cases (B1 mixed and decode-only, B2 decode, B3
               prefill) and B3 at S 128 also read kernel and SDPA time from
-              the profiler's device trace, which holds no host time.
+              the profiler's device trace, which holds no host time.  B3's
+              backward (the D, dK/dV and dQ kernels, through
+              FlashAttention) against autograd of the plain version at
+              qwen1.5-0.5b's training shape (8 x 16 heads, dh 64, S 4096,
+              causal) in bf16 and fp32, qwen3-14b's GQA at dh 128, dh 96,
+              hubert's dh 80 non-causal, hymba's window, S 1000 and a case
+              whose late rows see no key: each gradient's error relative to
+              its largest magnitude under the tolerance, between a floor
+              (bf16: P rounded; fp32: the plain gradient in float64) and a
+              fault (a key tile dropped) read in the same run; timed beside
+              its bound and SDPA's backward.
   4. small:   a reduced fp32 engine on the GPU (kernels) against the same
               engine on the CPU (plain attention), under the fused step, the
               split schedule and the three dense mode combinations: identical
@@ -44,7 +55,11 @@ Phases, in order; any failure exits nonzero:
               xlstm, internvl2; head dims the flash kernel is built for)
               through prefill and 8 greedy decode_step tokens on the GPU
               and the CPU, carry and stacked: identical tokens; hubert's
-              forward_hidden on both within 1e-4.
+              forward_hidden on both within 1e-4.  Then reduced fp32
+              qwen3 (GQA), qwen1.5 and dbrx (MoE aux loss) at dh 64 train
+              5 steps on the GPU (B3 and its backward) and the CPU from
+              the same weights: losses within 1e-5, parameters within 1e-5
+              relative L2, exact launches.
   5. engine:  the port's InferenceEngine serving qwen3-14b at full width
               and depth with seeded random weights, on a simulated
               A100 + 3090 cluster whose two pool shards both live on this
@@ -113,6 +128,18 @@ Phases, in order; any failure exits nonzero:
               each launch, queued behind a spin kernel) over the prefill's
               wall and the token scans' share (hymba's SSM, xLSTM's
               blocks; synchronised wall time).
+
+ 11. train:   qwen1.5-0.5b at its published widths and all 24 layers
+              (bf16, remat), trained through repro_torch.training on
+              SyntheticLM at seq 4096, global batch 8, lr 3e-4: the first
+              step's loss and every leaf's gradient against plain-attention
+              re-runs (relative L2 under 0.1, floor: P rounded, fault: a
+              key tile dropped in layer 0's backward), exact B3 launches
+              per step (48 forward, 24 of each backward kernel), 20 steps
+              that learn, and 5 steps + a checkpoint + 5 more from it
+              against 10 straight.  ms per step, tokens/s, peak memory,
+              the model FLOP share; with --profile B3's forward and
+              backward device time per step.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -248,9 +275,10 @@ def check_kernel(name, got, ref, padded, dname):
 
 
 def report(kernel, name, shape, dname, max_err, ms, plain, lib, b_ms, b_by,
-           nbytes, flops):
+           nbytes, flops, tol=None):
+    tol = TOL[dname] if tol is None else tol
     log(f"{kernel} {name}: q {shape} {dname} max_abs_err {max_err:.3g} (tol "
-        f"{TOL[dname]}) | kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+        f"{tol}) | kernel_ms {ms:.4f} plain_ms {plain:.4f} "
         f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}: {nbytes} B, "
         f"{flops:.4g} FLOP) roofline {b_ms / ms:.3f}")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain, library_ms=lib,
@@ -631,6 +659,223 @@ def flash_kernel_phase(dev, flush, profile):
         if profile and name in DEVICE_TIMED["B3"]:
             log_device_ms("B3", name, results[name], call, sdpa, flush)
         del q, k, v, got, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------- B3's backward
+def plain_flash_grads(q, k, v, dout, causal, window, *, round_p=False,
+                      drop_tile=False, dtype=torch.float32, chunk=512):
+    """Plain attention and its analytic gradient in ``dtype`` arithmetic,
+    over chunks of ``chunk`` query positions (the score tensor of a whole
+    (8, 16, 4096, 4096) training call would not fit beside a model): (out,
+    dq, dk, dv) in ``dtype``, BHSD, GQA by repeating K/V over the r query
+    heads of each kv head and summing their gradients back.  ``round_p``
+    rounds P to bf16 where it meets a product (PV and P^T dO): a second
+    exact implementation, the bf16 noise floor; ``drop_tile`` leaves keys
+    64-127 out of the backward (P and dS zero there): a fault, one key tile
+    dropped.  With ``dout`` None only the output is computed."""
+    B, Hq, Sq, dh = q.shape
+    Hkv, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    r = Hq // Hkv
+    K = k.to(dtype).repeat_interleave(r, 1)
+    V = v.to(dtype).repeat_interleave(r, 1)
+    scale = 1.0 / math.sqrt(dh)
+    out = torch.empty((B, Hq, Sq, dv), dtype=dtype, device=q.device)
+    if dout is not None:
+        dq = torch.empty((B, Hq, Sq, dh), dtype=dtype, device=q.device)
+        dK = torch.zeros((B, Hq, Sk, dh), dtype=dtype, device=q.device)
+        dV = torch.zeros((B, Hq, Sk, dv), dtype=dtype, device=q.device)
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    dropped = (kp >= 64) & (kp < 128)
+    rnd = (lambda x: x.to(torch.bfloat16).to(dtype)) if round_p \
+        else (lambda x: x)
+    for i0 in range(0, Sq, chunk):
+        i1 = min(i0 + chunk, Sq)
+        qc = q[:, :, i0:i1].to(dtype)
+        g = None if dout is None else dout[:, :, i0:i1].to(dtype)
+        qp = torch.arange(i0, i1, device=q.device)[:, None]
+        ok = (qp >= kp) if causal else torch.ones_like(qp >= kp)
+        if window > 0:
+            ok &= qp - kp < window
+        s = (qc @ K.transpose(-1, -2) * scale).masked_fill(~ok,
+                                                           float("-inf"))
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)   # no key: 0
+        del s
+        o = rnd(p) @ V
+        out[:, :, i0:i1] = o
+        if dout is None:
+            continue
+        D = (g * o).sum(-1, keepdim=True)
+        if drop_tile:
+            p = p.masked_fill(dropped, 0.0)
+        dV += rnd(p).transpose(-1, -2) @ g
+        ds = p * (g @ V.transpose(-1, -2) - D)
+        del p
+        dq[:, :, i0:i1] = ds @ K * scale
+        dK += ds.transpose(-1, -2) @ qc * scale
+        del ds
+    if dout is None:
+        return (out,)
+    dk = dK.view(B, Hkv, r, Sk, dh).sum(2)
+    dvv = dV.view(B, Hkv, r, Sk, dv).sum(2)
+    return out, dq, dk, dvv
+
+
+def ref_grads(q, k, v, dout, causal, window):
+    """Autograd of the plain version (``flash_attention_ref``), one batch
+    row at a time: (dq, dk, dv) in the inputs' dtype."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    outs = []
+    for b in range(q.shape[0]):
+        qkv = [t[b:b + 1].detach().requires_grad_() for t in (q, k, v)]
+        o = flash_attention_ref(*qkv, causal=causal, window=window)
+        outs.append(torch.autograd.grad(o, qkv, dout[b:b + 1]))
+        del o, qkv
+    return [torch.cat(gs) for gs in zip(*outs)]
+
+
+def grad_err(got, want):
+    """max |got - want| / max |want| of each gradient, and the largest."""
+    errs = [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max()) for a, b in zip(got, want)]
+    return errs, max(errs)
+
+
+def bound_flash_bwd(q, k, causal, window, dname):
+    """(bound_ms, bound_by, bytes, flops) of the backward: 2.5 times the
+    forward's FLOPs (five products of its size where it has two); q, k,
+    v, o, dO, lse and D read once, dq, dk and dv written once."""
+    B, Hq, Sq, dh = q.shape
+    size = q.element_size()
+    nbytes = (3 * q.numel() + 4 * k.numel()) * size \
+        + 2 * B * Hq * Sq * 4 + q.numel() * size
+    flops = 2.5 * 4.0 * dh * B * Hq * visible_pairs(Sq, k.shape[2], causal,
+                                                    window)
+    return roofline(nbytes, flops, dname) + (nbytes, flops)
+
+
+# (dtype, widths, Sq, Sk, causal, window)
+FLASH_BWD_CASES = {
+    # qwen1.5-0.5b's training attention: 8 rows x 16 MHA heads, dh 64
+    "train": (torch.bfloat16, dict(B=8, Hq=16, Hkv=16, dh=64), 4096, 4096,
+              True, 0),
+    "train_fp32": (torch.float32, dict(B=8, Hq=16, Hkv=16, dh=64), 4096,
+                   4096, True, 0),
+    # qwen3-14b's GQA (40 over 8 heads, dh 128)
+    "gqa_dh128": (torch.bfloat16, dict(B=1, Hq=40, Hkv=8, dh=128), 1024,
+                  1024, True, 0),
+    # phi3-mini's dh 96, MHA
+    "mha_dh96": (torch.bfloat16, dict(B=1, Hq=32, Hkv=32, dh=96), 1024,
+                 1024, True, 0),
+    # hubert-xlarge: dh 80, non-causal, its longest clip
+    "dh80_noncausal": (torch.bfloat16, dict(B=1, Hq=16, Hkv=16, dh=80), 1600,
+                       1600, False, 0),
+    # hymba-1.5b's windowed layers
+    "window_1024": (torch.bfloat16, dict(B=1, Hq=25, Hkv=5, dh=64), 2048,
+                    2048, True, 1024),
+    # not a whole number of tiles
+    "s1000": (torch.bfloat16, dict(B=1, Hq=16, Hkv=16, dh=64), 1000, 1000,
+              True, 0),
+    # Sq > Sk + window: rows at positions >= 767 see no key
+    "blind_rows": (torch.bfloat16, dict(B=1, Hq=10, Hkv=2, dh=64), 1024, 512,
+                   True, 256),
+}
+
+
+def flash_bwd_kernel_phase(dev, flush):
+    """B3's backward (the D, dK/dV and dQ kernels) against autograd of the
+    plain version at FLASH_BWD_CASES, through ``FlashAttention``: the
+    largest gradient error over dq, dk, dv relative to each gradient's
+    largest magnitude under TOL, with the floor (bf16: plain with P
+    rounded; fp32: the plain gradient in float64) and the fault (one key
+    tile dropped) read in the same run, floor < limit < fault; rows that
+    see no key get exactly 0.  Times: the three kernels (CUDA events,
+    after the L2 flush), the plain gradient, SDPA's backward
+    (``autograd.grad`` of F.scaled_dot_product_attention) on the same
+    tensors, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    results = {}
+    for name, (dtype, w, Sq, Sk, causal, window) in FLASH_BWD_CASES.items():
+        dname = dtype_name(dtype)
+        g = torch.Generator(device=dev).manual_seed(5)
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+        q, dout = rnd(w["B"], w["Hq"], Sq, w["dh"]), \
+            rnd(w["B"], w["Hq"], Sq, w["dh"])
+        k, v = rnd(w["B"], w["Hkv"], Sk, w["dh"]), \
+            rnd(w["B"], w["Hkv"], Sk, w["dh"])
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(ops.LAUNCHES)
+        out = ops.flash_attention(*qkv, causal=causal, window=window)
+        got = torch.autograd.grad(out, qkv, dout)
+        torch.cuda.synchronize()
+        assert out.grad_fn is not None
+        assert {n: ops.LAUNCHES[n] - before[n] for n in ops.BWD_KERNELS} \
+            == {n: 1 for n in ops.BWD_KERNELS}
+        want = ref_grads(q, k, v, dout, causal, window)
+        errs, err = grad_err(got, want)
+        if dtype == torch.bfloat16:
+            floor = grad_err(plain_flash_grads(q, k, v, dout, causal, window,
+                                               round_p=True)[1:], want)[1]
+        else:
+            floor = grad_err(plain_flash_grads(q, k, v, dout, causal, window,
+                                               dtype=torch.float64)[1:],
+                             want)[1]
+        fault = grad_err(plain_flash_grads(q, k, v, dout, causal, window,
+                                           drop_tile=True)[1:], want)[1]
+        blind = (flash_attention_ref(q[:1], k[:1], v[:1], causal=causal,
+                                     window=window) == 0).all(-1)
+        ok = (err <= TOL[dname] and floor < TOL[dname] < fault
+              and all(torch.isfinite(t).all() for t in got)
+              and bool((got[0][:1][blind] == 0).all()))
+        log(f"B3 backward {name}: q {list(q.shape)} kv {list(k.shape)} "
+            f"{dname} causal {causal} window {window}: error dq/dk/dv "
+            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} of max |grad| "
+            f"(limit {TOL[dname]}; floor {floor:.3g}, fault {fault:.3g}); "
+            f"rows that see no key {int(blind.sum())}")
+        if not ok:
+            raise AssertionError(f"B3 backward disagrees with plain ({name})")
+        if name == "s1000":                  # the train phase's plain grads
+            f32 = [t.float() for t in (q, k, v, dout)]
+            own = grad_err(plain_flash_grads(*f32, causal, window)[1:],
+                           ref_grads(*f32, causal, window))[1]
+            log(f"B3 backward {name}: the chunked plain gradient (the train "
+                f"phase's re-run) vs autograd of the plain version, fp32: "
+                f"{own:.3g} (limit {TOL['float32']})")
+            assert own <= TOL["float32"], own
+        fwd_out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                               window=window)
+        call = lambda: ops.flash_attention_bwd(q, k, v, fwd_out, lse, dout,
+                                               causal=causal, window=window)
+        ms = time_ms(call, 10, flush)
+        plain = time_ms(lambda: ref_grads(q, k, v, dout, causal, window), 2,
+                        flush)
+        sq = [t.clone().requires_grad_() for t in (q, k, v)]
+        if window > 0:
+            qp = torch.arange(Sq, device=dev)[:, None]
+            kp = torch.arange(Sk, device=dev)[None, :]
+            mask = (qp - kp < window) & (qp >= kp)
+            so = F.scaled_dot_product_attention(*sq, attn_mask=mask,
+                                                enable_gqa=True)
+        else:
+            so = F.scaled_dot_product_attention(*sq, is_causal=causal,
+                                                enable_gqa=True)
+        lib = time_ms(lambda: torch.autograd.grad(so, sq, dout,
+                                                  retain_graph=True), 5,
+                      flush)
+        del so, sq
+        max_abs = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        results[name] = report(
+            "B3 backward", name, list(q.shape), dname, max_abs, ms, plain,
+            lib, *bound_flash_bwd(q, k, causal, window, dname),
+            tol=f"{TOL[dname]} of each gradient's max |value|")
+        results[name].update(kv_shape=list(k.shape), causal=causal,
+                             window=window, errors=errs, floor=floor,
+                             fault=fault, rows_without_keys=int(blind.sum()))
+        del q, k, v, dout, qkv, out, got, want, fwd_out, lse
         torch.cuda.empty_cache()
     return results
 
@@ -1964,6 +2209,370 @@ def family_phase(dev, name):
     return out
 
 
+# ------------------------------------------------------------ training
+# the train phase's gradient gate: relative L2 of every leaf's gradient
+# (and of the loss), kernel against a plain-attention re-run, between the
+# floor (plain with P rounded to bf16) and a fault (one key tile dropped
+# in layer 0's attention backward), both read in the same run; predicted
+# before the first run, as LOGITS_LIMIT was
+GRAD_LIMIT = 0.1
+TRAIN_ARCH = "qwen1.5-0.5b"
+# lr: TrainConfig's default (the reference's train loop's).  The
+# launcher's 1e-3, its default for the reduced configs, does not learn in
+# 20 steps at full width: Adam's first steps move every weight by lr, and
+# the loss rose after step 5 (PERF.md, section 6)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 4096, 8, 3e-4
+TRAIN_STEPS = 20
+
+
+class PlainFlash(torch.autograd.Function):
+    """Plain attention in place of B3's forward and backward (the train
+    phase's re-runs), on BHSD views: the forward of ``plain_flash_grads``
+    and, in the backward, its analytic gradient, both in query chunks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, round_p, drop_tile):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, round_p, drop_tile)
+        return plain_flash_grads(q, k, v, None, causal, window,
+                                 round_p=round_p)[0].to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, round_p, drop_tile = ctx.args
+        _, dq, dk, dv = plain_flash_grads(q, k, v, dout, causal, window,
+                                          round_p=round_p,
+                                          drop_tile=drop_tile)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def plain_train_attention(n_layers, round_p=False, drop_layer0=False):
+    """``ops.flash_attention``'s signature over ``PlainFlash``.  Under
+    remat a step calls attention 2 * n_layers times: the layers in order,
+    then their recomputes in reverse order (the backward's), so call i is
+    layer i, or 2 n - 1 - i; ``drop_layer0`` drops a key tile from layer
+    0's backward."""
+    calls = [0]
+
+    def fn(q, k, v, *, causal=True, window=0, layout="BHSD", **_):
+        i = calls[0] % (2 * n_layers)
+        calls[0] += 1
+        layer = i if i < n_layers else 2 * n_layers - 1 - i
+        if layout == "BSHD":
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        o = PlainFlash.apply(q, k, v, causal, window, round_p,
+                             drop_layer0 and layer == 0)
+        return o.transpose(1, 2) if layout == "BSHD" else o
+    return fn
+
+
+def _paths(tree, path):
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{path}.{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_paths(v, f"{path}[{i}]") for i, v in enumerate(tree)]
+    return path
+
+
+def leaf_names(tree):
+    """The leaves' paths (``groups[0].attn.wq``), in flatten order."""
+    from repro_torch.training.tree import flatten
+    return flatten(_paths(tree, ""))[0]
+
+
+def step_grads(cfg, params, batch):
+    """(loss, the gradient of every leaf in flatten order) of one step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.tree import flatten
+    loss, _ = T.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, flatten(params)[0],
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def rel_l2(a, b):
+    return float(torch.linalg.vector_norm((a.float() - b.float()))
+                 / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
+def train_flops(cfg, n_params, tokens, layers_params):
+    """Model FLOPs of one remat training step: 6 N per token (forward and
+    backward of every weight), 2 N_layers per token again for the remat
+    forward of the layers, and the attention's products: 4 dh per visible
+    (query row, key) pair and head in each of the two forwards, 2.5 times
+    that in the backward."""
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, cfg.causal, 0)
+    attn_fwd = 4.0 * cfg.head_dim * pairs * cfg.n_heads * TRAIN_BATCH \
+        * cfg.n_layers
+    return (6.0 * n_params * tokens + 2.0 * layers_params * tokens
+            + 4.5 * attn_fwd), attn_fwd
+
+
+def train_phase(dev, profile):
+    """qwen1.5-0.5b at its published widths and all 24 layers, trained
+    through ``repro_torch.training`` with every attention layer's forward
+    and backward through B3's kernels (bf16 weights from ``init_params``,
+    ``SyntheticLM`` at seq 4096 and global batch 8, lr 3e-4, remat on).
+    Gates: (1) the first step's loss and every leaf's gradient against a
+    plain-attention re-run, relative L2 under GRAD_LIMIT between the
+    floor and the fault read in the same run; (2) exact B3 launches in that step: 2 forwards per
+    layer (remat) and one of each backward kernel; (3) 20 steps with
+    finite losses whose last 5 average below the first; (4) restart: 5
+    steps, a checkpoint, 5 more in a fresh ``train`` call from it, equal
+    to the 20-step run's first 10 losses within rtol 1e-4, atol 1e-5, and
+    the checkpoint's bf16 leaves bit-exact.  Records ms per step, tokens/s,
+    peak memory and the model FLOP share; with ``profile``, B3's device
+    time per step from the profiler's trace."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import (TrainConfig, train,
+                                                 trainable)
+    from repro_torch.training.tree import flatten
+    from repro_torch.weights import init_params
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    out = {"arch": TRAIN_ARCH, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "lr": TRAIN_LR, "layers": L}
+
+    # (1) + (2): the first step against plain re-runs
+    params = trainable(init_params(cfg, 0, dev))
+    names = leaf_names(params)
+    n_params = sum(p.numel() for p in flatten(params)[0])
+    layers_params = sum(p.numel() for p in flatten(params["groups"])[0])
+    out["params"] = n_params
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in SyntheticLM(dcfg).batch_at(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa_ops.LAUNCHES:
+        fa_ops.LAUNCHES[key] = 0             # the phase's run starts here
+    t0 = time.perf_counter()
+    loss_k, g_k = step_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(fa_ops.LAUNCHES)         # the checked step's
+    out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches_per_step"] = launches
+    log(f"train: {TRAIN_ARCH} {n_params / 1e9:.3f}e9 params ({L} layers, "
+        f"remat), batch {TRAIN_BATCH} x {TRAIN_SEQ}: first step "
+        f"{first_s:.2f} s, loss {float(loss_k):.4f}, peak "
+        f"{out['step_peak_gb']:.1f} GB; launches {launches}")
+    want = {"flash_attention": 2 * L, **{n: L for n in fa_ops.BWD_KERNELS}}
+    if launches != want:
+        raise AssertionError(f"train: B3 launches {launches} != {want}")
+    kernel_fn = fa_ops.flash_attention
+    reruns = {}
+    try:
+        for tag, fn in (("plain", plain_train_attention(L)),
+                        ("floor", plain_train_attention(L, round_p=True)),
+                        ("fault", plain_train_attention(L,
+                                                        drop_layer0=True))):
+            fa_ops.flash_attention = fn
+            before = dict(fa_ops.LAUNCHES)
+            reruns[tag] = step_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+            assert fa_ops.LAUNCHES == before, tag   # no kernel in a re-run
+    finally:
+        fa_ops.flash_attention = kernel_fn
+    out["rerun_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    loss_p, g_p = reruns["plain"]
+    dist = {}
+    for tag, (loss, grads) in (("kernel", (loss_k, g_k)),
+                               *((t, reruns[t]) for t in ("floor",
+                                                          "fault"))):
+        per_leaf = {n: rel_l2(a, b) for n, a, b in zip(names, grads, g_p)}
+        worst = max(per_leaf, key=per_leaf.get)
+        dist[tag] = {"loss": abs(float(loss) - float(loss_p))
+                     / abs(float(loss_p)), "leaves": per_leaf,
+                     "worst_leaf": worst, "worst": per_leaf[worst]}
+        log(f"train: {tag} vs plain re-run: loss rel {dist[tag]['loss']:.3g}"
+            f", gradient rel L2 worst {per_leaf[worst]:.3g} ({worst}), "
+            + ", ".join(f"{n} {e:.3g}" for n, e in per_leaf.items()))
+    out.update(grad_distance=dist, limit=GRAD_LIMIT)
+    floor = max(dist["floor"]["worst"], dist["floor"]["loss"])
+    fault = dist["fault"]["worst"]
+    if not (floor < GRAD_LIMIT < fault):
+        raise AssertionError(f"train: floor {floor:.3g} < limit "
+                             f"{GRAD_LIMIT} < fault {fault:.3g} fails")
+    if (dist["kernel"]["worst"] > GRAD_LIMIT
+            or dist["kernel"]["loss"] > GRAD_LIMIT):
+        raise AssertionError(f"train: kernel step vs plain re-run over "
+                             f"the limit: {dist['kernel']['worst']:.3g} "
+                             f"({dist['kernel']['worst_leaf']})")
+    del params, g_k, g_p, reruns, batch
+    free("the checked step")
+
+    # (3): 20 steps; (4): restart from a checkpoint after 5
+    torch.cuda.reset_peak_memory_stats()
+    run = train(cfg, dcfg, TrainConfig(steps=TRAIN_STEPS, lr=TRAIN_LR,
+                                       device=str(dev)))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, times = run["losses"], run["times"]
+    del run
+    free("the 20-step run")
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"train: the loss did not learn: {losses}")
+    steady = sorted(times[1:])
+    med = statistics.median(steady)
+    p90 = steady[min(len(steady) - 1, int(0.9 * len(steady)))]
+    flops, attn_fwd = train_flops(cfg, n_params, tokens, layers_params)
+    out.update(losses=losses, step_s=times, step_ms_median=med * 1e3,
+               step_ms_p90=p90 * 1e3, tokens_per_s=tokens / med,
+               peak_gb=peak, model_flops=flops,
+               attention_fwd_flops=attn_fwd,
+               flop_share=flops / med / PEAK_FLOPS["bfloat16"])
+    log(f"train: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (last 5 mean {statistics.mean(losses[-5:]):.4f});"
+        f" step ms median {med * 1e3:.1f} p90 {p90 * 1e3:.1f} (first "
+        f"{times[0] * 1e3:.1f}), {tokens / med:.0f} training tokens/s, peak "
+        f"{peak:.1f} GB; model FLOPs {flops:.3g} per step = "
+        f"{flops / med / 1e12:.1f} TFLOP/s, {out['flop_share']:.3f} of "
+        f"989 TFLOP/s")
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        first = train(cfg, dcfg, TrainConfig(steps=5, lr=TRAIN_LR,
+                                             ckpt_dir=str(ck), ckpt_every=5,
+                                             device=str(dev)))
+        saved = ckpt.restore(str(ck), 5, {"params": first["params"],
+                                          "opt": first["opt"]})
+        same = [torch.equal(a.view(torch.int16), b.view(torch.int16))
+                if a.dtype == torch.bfloat16 else torch.equal(a, b)
+                for a, b in zip(flatten({"params": first["params"],
+                                         "opt": first["opt"]})[0],
+                                flatten(saved)[0])]
+        n_bf16 = sum(p.dtype == torch.bfloat16
+                     for p in flatten(first["params"])[0])
+        first_losses = first["losses"]
+        del first, saved
+        free("the first half")
+        resumed = train(cfg, dcfg, TrainConfig(steps=10, lr=TRAIN_LR,
+                                               ckpt_dir=str(ck), ckpt_every=5,
+                                               device=str(dev)))["losses"]
+        restart_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    both = first_losses + resumed
+    np.testing.assert_allclose(both, losses[:10], rtol=1e-4, atol=1e-5)
+    if not all(same):
+        raise AssertionError("train: a checkpoint leaf did not restore "
+                             "bit-exact")
+    bit_equal = both == losses[:10]
+    out.update(restart_losses=both, restart_bit_equal=bit_equal,
+               restart_s=restart_s)
+    out["launches"] = dict(fa_ops.LAUNCHES)  # ... and ends here
+    log(f"train: B3 launches over the phase's {1 + TRAIN_STEPS + 10} "
+        f"steps: {out['launches']}")
+    log(f"train: restart 5 + checkpoint + 5 == 10 straight within rtol "
+        f"1e-4, atol 1e-5; bit-equal: {bit_equal}; {len(same)} checkpoint "
+        f"leaves ({n_bf16} bf16) restored bit-exact; 15 steps with two "
+        f"saves and a restore in {restart_s:.1f} s")
+    free("the restart runs")
+
+    if profile:
+        out["profile"] = train_profile(cfg, dcfg)
+        free("the profiled steps")
+    return out
+
+
+def train_profile(cfg, dcfg):
+    """Two traced steps (after one untraced): B3's forward and backward
+    kernels' device time per step and their shares of device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import train_step, trainable
+    from repro_torch.weights import init_params
+    params = trainable(init_params(cfg, 0, "cuda"))
+    opt = adamw_init(params)
+    data = SyntheticLM(dcfg)
+    batch_at = lambda i: {k: torch.from_numpy(v).to("cuda", torch.int64)
+                          for k, v in data.batch_at(i).items()}
+    params, opt, loss, _ = train_step(cfg, params, opt, batch_at(0),
+                                      TRAIN_LR)
+    float(loss)
+    batches = [batch_at(i) for i in (1, 2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            params, opt, loss, _ = train_step(cfg, params, opt, b, TRAIN_LR)
+        float(loss)
+    us = {e.key: e.self_device_time_total for e in prof.key_averages()
+          if e.self_device_time_total > 0}
+    busy = sum(us.values()) / 2 / 1e3
+    pick = lambda part: sum(t for k, t in us.items() if part in k) / 2 / 1e3
+    fwd, dkdv, dq, dot = (pick("flash_kernel"), pick("dkdv_kernel"),
+                          pick("dq_kernel"), pick("dot_kernel"))
+    bwd = dkdv + dq + dot
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+    log(f"train --profile: device busy {busy:.1f} ms per step; B3 forward "
+        f"{fwd:.2f} ms ({fwd / busy:.3f} of busy), backward {bwd:.2f} ms "
+        f"({bwd / busy:.3f}; dK/dV {dkdv:.2f}, dQ {dq:.2f}, D {dot:.2f}); "
+        f"top kernels: " + "; ".join(f"{k[:60]} {t / 2e3:.2f} ms"
+                                     for k, t in top))
+    return {"busy_ms": busy, "b3_fwd_ms": fwd, "b3_bwd_ms": bwd,
+            "dkdv_ms": dkdv, "dq_ms": dq, "dot_ms": dot,
+            "fwd_share": fwd / busy, "bwd_share": bwd / busy}
+
+
+def small_train_phase(dev):
+    """Reduced fp32 qwen3 (GQA), qwen1.5 and dbrx (MoE: the aux loss) at
+    dh 64, 5 training steps on the GPU (B3 forward and backward, no TF32)
+    against the CPU (plain attention, autograd of it) from the same
+    weights: losses within 1e-5 and the parameters within 1e-5 relative
+    L2 over all leaves; exact B3 launches.  (AdamW moves each element by
+    about lr whatever its gradient's size, so a leaf whose gradient is
+    near the sum-order noise, or whose values are only a few lr, as
+    qwen1.5's zero-initialised q/k biases after 5 steps, moves apart by
+    more than 1e-5 of its own norm: 3.4e-5 on the CPU alone when only the
+    attention's sums are reordered.  The worst leaf is logged.)"""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.training.tree import flatten
+    from repro_torch.weights import init_params
+    for name in ("qwen3-14b", "qwen1.5-0.5b", "dbrx-132b"):
+        cfg = dataclasses.replace(smoke_config(name), head_dim=64)
+        params = init_params(cfg, 0, device="cpu")
+        dcfg = DataConfig(cfg.vocab_size, seq_len=96, global_batch=4)
+        runs = {}
+        for device in ("cpu", dev):
+            for key in fa_ops.LAUNCHES:
+                fa_ops.LAUNCHES[key] = 0
+            runs[str(device)] = train(cfg, dcfg, TrainConfig(
+                steps=5, lr=1e-3, device=str(device)), params=params)
+        launches = dict(fa_ops.LAUNCHES)
+        cpu, gpu = runs["cpu"], runs[str(dev)]
+        loss_err = max(abs(a - b) for a, b in zip(gpu["losses"],
+                                                  cpu["losses"]))
+        pairs = [(a.detach().cpu().float(), b.detach().float())
+                 for a, b in zip(flatten(gpu["params"])[0],
+                                 flatten(cpu["params"])[0])]
+        param_err = rel_l2(torch.cat([a.reshape(-1) for a, _ in pairs]),
+                           torch.cat([b.reshape(-1) for _, b in pairs]))
+        leaf_err = max(rel_l2(a, b) for a, b in pairs)
+        want = {"flash_attention": 5 * cfg.n_layers,
+                **{n: 5 * cfg.n_layers for n in fa_ops.BWD_KERNELS}}
+        log(f"small train: {name} (dh 64, fp32) 5 steps GPU vs CPU: losses "
+            f"{[round(x, 5) for x in gpu['losses']]}, max loss diff "
+            f"{loss_err:.3g}, parameters rel L2 {param_err:.3g} (limits "
+            f"1e-5; worst leaf {leaf_err:.3g}); B3 launches {launches}")
+        if loss_err > 1e-5 or param_err > 1e-5 or launches != want:
+            raise AssertionError(f"small train ({name}): GPU != CPU")
+
+
 def full_width_params(dev, name, n_layers=0, seed=0):
     """The published config ``name`` (its first ``n_layers`` layers, where
     given) and seeded weights for it on the card."""
@@ -2009,6 +2618,23 @@ def kernel_entry(kid, case, launches):
             "library_ms": case["library_ms"]}
 
 
+def backward_entry(case, launches):
+    """B3's backward in the kernels line: its launches are the backward
+    calls of the train phase (each launches the D, dK/dV and dQ kernels
+    once; ``launches_by_kernel`` gives each)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    by_kernel = {n: launches[n] for n in fa_ops.BWD_KERNELS}
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+            "launches": min(by_kernel.values()),
+            "launches_by_kernel": by_kernel,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2043,7 +2669,8 @@ def main(argv=None) -> int:
     build.build_all(sources)
     for name, _ in ops.SOURCES:
         ops._library(name)
-    fa_ops._library()
+    for name, _ in fa_ops.SOURCES:
+        fa_ops._library(name)
     log(f"build: {', '.join(n for n, _ in sources)} built in parallel "
         f"and loaded in {time.perf_counter() - t0:.1f} s")
     for name, _ in sources:
@@ -2066,9 +2693,11 @@ def main(argv=None) -> int:
     b1 = prefill_kernel_phase(dev, flush, args.profile)
     b2 = decode_kernel_phase(dev, flush, args.profile)
     b3 = flash_kernel_phase(dev, flush, args.profile)
+    b3_bwd = flash_bwd_kernel_phase(dev, flush)
     del flush
     small_engine_phase(dev)
     small_family_phase(dev)
+    small_train_phase(dev)
     # the engine phases serve the same weights; each engine's pools are
     # freed before the next engine allocates its own
     cfg, params = full_width_params(dev, "qwen3-14b")
@@ -2133,12 +2762,17 @@ def main(argv=None) -> int:
         families[name] = family_phase(dev, name)
         free(name)
 
+    # training at full width, every attention layer through B3 and its
+    # backward
+    training = train_phase(dev, args.profile)
+
     runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values(),
-            *probe.values(), *families.values())
+            *probe.values(), *families.values(), training)
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
                                  ("B3", b3["prefill"]))]
+    entries.append(backward_entry(b3_bwd["train"], training["launches"]))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -2146,7 +2780,8 @@ def main(argv=None) -> int:
              "engine_fused": fused, "engine_split": split,
              "engine_dense_prefill": dense, "engine_dbrx": dbrx,
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
-             "families": families,
+             "families": families, "b3_backward_cases": b3_bwd,
+             "train": training,
              "profile_attention": tau,
              "split_fused_token_agreement": [same, total],
              "dense_split_token_agreement": [same_dense, total],

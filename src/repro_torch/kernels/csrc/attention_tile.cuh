@@ -43,6 +43,8 @@
 
 #pragma once
 
+#include <math.h>
+
 #include <type_traits>
 
 #include "mma_tiles.cuh"
@@ -85,6 +87,15 @@ struct Layout {
   static constexpr size_t kBytes = kQ + kK + kV + kP;
 };
 
+// Whether a block view can write each row's log-sum-exp (Blk::kLse true,
+// with lse and lse_row): the dense kernel's, for the backward; the paged
+// views have no kLse, and their code is what it was.
+template <typename Blk, typename = void>
+struct WritesLse : std::false_type {};
+template <typename Blk>
+struct WritesLse<Blk, std::void_t<decltype(Blk::kLse)>>
+    : std::integral_constant<bool, Blk::kLse> {};
+
 // Copies per batch of a tile load: the largest divisor of n up to 8.
 __host__ __device__ constexpr int copy_batch(int n) {
   return n % 8 == 0 ? 8 : n % 6 == 0 ? 6 : n % 4 == 0 ? 4 : n % 3 == 0 ? 3
@@ -100,6 +111,8 @@ __host__ __device__ constexpr int copy_batch(int n) {
 //   kv_row(key)            key's row index into K and V (clamped in range)
 //   k_row(i), v_row(i)     row i of K, V
 //   out_row(j)             row j of the output (DV contiguous)
+//   kLse, lse, lse_row(j)  (optional) where row j's log-sum-exp goes;
+//                          written when lse is not null
 //   scale_log2             log2(e) / sqrt(DQK)
 //   kSplits                (static) whether keys may be cut into spans;
 //                          then n_splits, span, m_part, l_part, acc_part
@@ -471,6 +484,20 @@ __device__ __forceinline__ void attend_tile(const Blk& blk, int qt, int split,
         }
       }
       return;
+    }
+  }
+
+  // the natural-log log-sum-exp of each row's scaled, masked scores,
+  // ln 2 * (m + log2 l); -inf for a row that saw no key
+  if constexpr (WritesLse<Blk>::value) {
+    if (blk.lse != nullptr && t == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (j0 < M)
+        *blk.lse_row(j0) =
+            l0 > 0.f ? (m_run[0] + log2f(l0)) * kLn2 : -INFINITY;
+      if (j1 < M)
+        *blk.lse_row(j1) =
+            l1 > 0.f ? (m_run[1] + log2f(l1)) * kLn2 : -INFINITY;
     }
   }
 

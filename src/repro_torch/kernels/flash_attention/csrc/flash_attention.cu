@@ -71,7 +71,9 @@ struct Args {
   const void* k;                // (B, Hkv, Sk, DQK) by st.k
   const void* v;                // (B, Hkv, Sk, DV) by st.v
   void* out;                    // (B, Hq, Sq, DV) by st.o
+  float* lse;                   // (B, Hq, Sq) contiguous, or null
   Strides st;
+  int Hq, Sq;
   int r, M, kv_len, causal, window;
   float scale_log2;             // log2(e) / sqrt(DQK)
 };
@@ -82,12 +84,15 @@ template <typename T>
 struct DenseBlock {
   static constexpr bool kLower = true;
   static constexpr bool kSplits = false;
+  static constexpr bool kLse = true;
   int M, r, kv_len, causal, window;
   const T* qb;
   const T* kb;
   const T* vb;
   T* ob;
+  float* lse;                   // (b, head hk * r, position 0), or null
   long long sq_pos, sq_head, sk, sv, so_pos, so_head;
+  int Sq;
   float scale_log2;
 
   __device__ __forceinline__ DenseBlock(const Args& a, int b, int hk)
@@ -99,8 +104,12 @@ struct DenseBlock {
         vb(static_cast<const T*>(a.v) + b * a.st.v[0] + hk * a.st.v[1]),
         ob(static_cast<T*>(a.out) + b * a.st.o[0] +
            static_cast<long long>(hk) * a.r * a.st.o[1]),
+        lse(a.lse == nullptr
+                ? nullptr
+                : a.lse + (static_cast<long long>(b) * a.Hq +
+                           static_cast<long long>(hk) * a.r) * a.Sq),
         sq_pos(a.st.q[2]), sq_head(a.st.q[1]), sk(a.st.k[2]),
-        sv(a.st.v[2]), so_pos(a.st.o[2]), so_head(a.st.o[1]),
+        sv(a.st.v[2]), so_pos(a.st.o[2]), so_head(a.st.o[1]), Sq(a.Sq),
         scale_log2(a.scale_log2) {}
 
   __device__ __forceinline__ int key_begin(int j) const {
@@ -121,6 +130,9 @@ struct DenseBlock {
   }
   __device__ __forceinline__ T* out_row(int j) const {
     return ob + (j / r) * so_pos + (j % r) * so_head;
+  }
+  __device__ __forceinline__ float* lse_row(int j) const {
+    return lse + static_cast<long long>(j % r) * Sq + j / r;
   }
 };
 
@@ -176,11 +188,15 @@ cudaError_t dispatch_dh(int dqk, int dv, const Args& a, int B, int Hkv,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (tensor cores).  q, k,
-// v and out share it.  strides: host array of 12 element strides, the
-// (B, H, S) axes of q, k, v, out.  dh: q's and k's head dim; dv: v's and
-// out's.  Returns the launch's cudaGetLastError() (0 on success).
+// v and out share it.  lse: null, or a contiguous fp32 (B, Hq, Sq) array
+// that gets each row's log-sum-exp (natural log, of the scaled masked
+// scores; -inf where a row sees no key), which the backward reads.
+// strides: host array of 12 element strides, the (B, H, S) axes of q, k,
+// v, out.  dh: q's and k's head dim; dv: v's and out's.  Returns the
+// launch's cudaGetLastError() (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, const long long* strides, int B,
+                               void* out, float* lse,
+                               const long long* strides, int B,
                                int Hq, int Hkv, int Sq, int Sk, int dh,
                                int dv, int causal, int window, float scale,
                                int dtype, void* stream) {
@@ -193,6 +209,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.out = out;
+  a.lse = lse;
+  a.Hq = Hq;
+  a.Sq = Sq;
   for (int i = 0; i < 3; ++i) {
     a.st.q[i] = strides[i];
     a.st.k[i] = strides[3 + i];

@@ -27,8 +27,11 @@ point).  The paged steps' traced twins (``*_traced``, the engine's
 per-module probe) run the same layer loop with a tracer: one
 device-synchronised span per module (``embed``, ``attention`` per layer,
 ``mlp`` per layer, ``lm_head`` with the final rmsnorm), so the untraced
-calls run the same operations in the same order.  Training is not
-ported yet (ROADMAP Queue A, item 8).
+calls run the same operations in the same order.  Training:
+``loss_fn`` (the chunked cross-entropy over ``forward_hidden``, each layer
+under activation checkpointing with ``cfg.remat``), differentiated by
+autograd, the attention through the flash-attention kernel's backward on
+the card.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -186,11 +190,15 @@ def supports_fused_step(cfg: ModelConfig) -> bool:
     return supports_paged_decode(cfg) and supports_paged_prefill(cfg)
 
 
-def _layer_slice(tree: Params, li: int) -> Params:
-    """Layer ``li`` of a group's stacked parameters (nested dicts, such
-    as the MoE layer's shared experts, included)."""
-    return {k: _layer_slice(v, li) if isinstance(v, dict) else v[li]
-            for k, v in tree.items()}
+def _layer_params(tree: Params) -> List[Params]:
+    """A group's stacked parameters (every leaf with a leading layer axis;
+    nested dicts, such as the MoE layer's shared experts, included) as one
+    tree of views per layer: one ``unbind`` per leaf, whose backward
+    stacks the layers' gradients once."""
+    per_key = {k: _layer_params(v) if isinstance(v, dict) else v.unbind(0)
+               for k, v in tree.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[li] for k, v in per_key.items()} for li in range(n)]
 
 
 def _embed(params: Params, tokens: torch.Tensor,
@@ -204,7 +212,8 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                  attend, tracer: Tracer = _UNTRACED, span_args=None,
-                 recur=None, aux: List = None) -> torch.Tensor:
+                 recur=None, aux: List = None, remat: bool = False
+                 ) -> torch.Tensor:
     """Run every layer on ``x``.  An attention layer: rmsnorm,
     ``attend(p_attn, xn, idx)`` (the attention output of layer ``idx``; it
     writes that layer's cache or pools), in a hybrid layer beside
@@ -216,8 +225,11 @@ def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
     needs.  ``aux`` collects the MoE layers' load-balance losses.  With an
     enabled ``tracer`` each module (``attention``, its span carrying
     ``span_args``; ``ssm``, ``mlstm``, ``slstm``; ``mlp``) runs in a span
-    that closes after the device finished it.  Returns the hidden states
-    before the final rmsnorm."""
+    that closes after the device finished it.  With ``remat`` each layer
+    runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` around its scanned layer body): only the layer's
+    input is kept, and the backward runs the layer again.  Returns the
+    hidden states before the final rmsnorm."""
     eps = cfg.norm_eps
 
     def block(name, p, xn, idx, args=None):
@@ -227,36 +239,46 @@ def _layer_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
             tracer.sync(out)
         return out
 
-    for idx, (kind, gi, li, _win) in enumerate(_layer_slots(cfg)):
-        gp = params["groups"][gi]
+    def layer(x, idx, kind, p):
+        """Layer ``idx`` of ``kind`` with parameters ``p`` (this layer's
+        slice of its group): (its output, its MoE loss or None)."""
         if kind == "xlstm_pair":
             for name, norm in (("mlstm", "m_norm"), ("slstm", "s_norm")):
-                xn = rmsnorm(x, gp[norm][li], eps)
-                x = x + block(name, _layer_slice(gp[name], li), xn, idx)
-            continue
-        xn = rmsnorm(x, gp["attn_norm"][li], eps)
-        a_out = block("attention", _layer_slice(gp["attn"], li), xn, idx,
-                      span_args)
+                xn = rmsnorm(x, p[norm], eps)
+                x = x + block(name, p[name], xn, idx)
+            return x, None
+        xn = rmsnorm(x, p["attn_norm"], eps)
+        a_out = block("attention", p["attn"], xn, idx, span_args)
         if kind == "hybrid":
-            s_out = block("ssm", _layer_slice(gp["ssm"], li), xn, idx)
-            a_out = 0.5 * (rmsnorm(a_out, gp["attn_out_norm"][li], eps)
-                           + rmsnorm(s_out, gp["ssm_out_norm"][li], eps))
+            s_out = block("ssm", p["ssm"], xn, idx)
+            a_out = 0.5 * (rmsnorm(a_out, p["attn_out_norm"], eps)
+                           + rmsnorm(s_out, p["ssm_out_norm"], eps))
         x = x + a_out
-        if "mlp" in gp:
-            xn = rmsnorm(x, gp["mlp_norm"][li], eps)
-            p_mlp = _layer_slice(gp["mlp"], li)
+        loss = None
+        if "mlp" in p:
+            xn = rmsnorm(x, p["mlp_norm"], eps)
             with tracer.span("mlp"):
                 if kind.endswith("moe"):
                     # the load-balance loss is for training
                     # (forward_hidden returns it); the serving steps drop
                     # it, as the reference's do
-                    m_out, loss = mlp_mod.moe_apply(cfg, p_mlp, xn)
-                    if aux is not None:
-                        aux.append(loss)
+                    m_out, loss = mlp_mod.moe_apply(cfg, p["mlp"], xn)
                 else:
-                    m_out = mlp_mod.mlp_apply(cfg, p_mlp, xn)
+                    m_out = mlp_mod.mlp_apply(cfg, p["mlp"], xn)
                 tracer.sync(m_out)
             x = x + m_out
+        return x, loss
+
+    per_layer = [_layer_params(gp) for gp in params["groups"]]
+    for idx, (kind, gi, li, _win) in enumerate(_layer_slots(cfg)):
+        if remat:
+            x, loss = checkpoint(layer, x, idx, kind, per_layer[gi][li],
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            x, loss = layer(x, idx, kind, per_layer[gi][li])
+        if loss is not None and aux is not None:
+            aux.append(loss)
     return x
 
 
@@ -276,15 +298,16 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 def _full_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                caches: List[Cache] = None, aux: List = None
-                ) -> torch.Tensor:
+                caches: List[Cache] = None, aux: List = None,
+                remat: bool = False) -> torch.Tensor:
     """Every layer over the whole (B, S) block at positions [0, S):
     attention through the flash-attention kernel (``gqa_full`` or
     ``mla_full``), the recurrent blocks' full-sequence scans.  With
     ``caches`` (the groups of ``init_cache``), each layer's cache entries
     are written there: K/V or the latent at [0, S), the recurrent states
-    after the last token.  Returns the hidden states before the final
-    rmsnorm."""
+    after the last token.  ``remat``: each layer under
+    ``torch.utils.checkpoint``.  Returns the hidden states before the
+    final rmsnorm."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     slots = _layer_slots(cfg)
@@ -308,7 +331,8 @@ def _full_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
                 holder[key][li] = val
         return out
 
-    return _layer_stack(cfg, params, x, attend, recur=recur, aux=aux)
+    return _layer_stack(cfg, params, x, attend, recur=recur, aux=aux,
+                        remat=remat)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
@@ -334,18 +358,67 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict, max_seq: int,
     return logits, {"groups": caches, "pos": lengths.to(torch.int32)}
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(cfg: ModelConfig, params: Params, batch: Dict,
+                   remat: bool = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The final hidden states (B, S, d) after the final rmsnorm, and the
     MoE layers' summed load-balance loss (fp32 scalar; 0 without MoE):
-    the encoder's entry point (hubert has no decode step)."""
+    the training path and the encoder's entry point (hubert has no decode
+    step).  ``remat`` (default ``cfg.remat``) runs each layer under
+    activation checkpointing when autograd records (grad mode on): the
+    values are the same either way."""
+    remat = cfg.remat if remat is None else remat
     x = embed_inputs(cfg, params, batch)
     aux: List[torch.Tensor] = []
-    h = _full_stack(cfg, params, x, aux=aux)
+    h = _full_stack(cfg, params, x, aux=aux,
+                    remat=remat and torch.is_grad_enabled())
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for loss in aux:
         total = total + loss
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), total
+
+
+def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One loss chunk: (the summed cross-entropy of its labelled
+    positions, their count), logits in fp32, labels -1 masked."""
+    logits = (h @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - tgt) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Chunked causal-LM (or frame-classification) cross-entropy, as the
+    reference computes it: ``forward_hidden`` (remat per ``cfg.remat``); a
+    vlm's hidden states cut to its text labels; the positions padded to a
+    whole number of ``cfg.loss_chunk`` chunks with label -1; per chunk the
+    fp32 logits' logsumexp less the label's logit, summed over labelled
+    positions; loss = mean + 0.01 * the MoE aux loss.  Returns (loss,
+    {"nll", "aux", "tokens"})."""
+    h, aux = forward_hidden(cfg, params, batch)
+    labels = batch["labels"].long()            # (B, S_out), -1 = pad
+    B, S, d = h.shape
+    if labels.shape[1] != S:                   # vlm: labels only for text
+        h = h[:, S - labels.shape[1]:]
+        S = labels.shape[1]
+    head = _lm_head(cfg, params)
+    chunk = min(cfg.loss_chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
+    lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        cut = slice(i * chunk, (i + 1) * chunk)
+        nll, n = _chunk_nll(hp[:, cut], lp[:, cut], head)
+        total = total + nll
+        count = count + n
+    nll = total / torch.clamp(count, min=1.0)
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux, "tokens": count}
 
 
 def _nest(flat: Dict[Tuple[str, ...], torch.Tensor]) -> Cache:

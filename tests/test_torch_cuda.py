@@ -443,6 +443,100 @@ def test_flash_wrapper_takes_only_its_head_dim_pairs(cuda):
         fa_ops.flash_attention(q[..., :128], k[..., :128].contiguous(), v)
 
 
+# ------------------------------------------------------ B3's backward
+# (B, Hq, Hkv, Sq, Sk, dh, causal, window): causal MHA over several key
+# blocks at each built head dim, GQA r = 5, non-causal at S not a tile
+# multiple, a window, rows that see no key (Sq > Sk + window), Sq < Sk
+FLASH_BWD_SHAPES = [
+    (2, 2, 2, 200, 200, 64, True, 0),
+    (1, 10, 2, 130, 130, 128, True, 0),
+    (1, 4, 4, 150, 150, 80, False, 0),
+    (1, 3, 3, 260, 260, 96, True, 40),
+    (1, 10, 2, 120, 50, 64, True, 16),
+    (1, 4, 2, 40, 130, 64, True, 0),
+]
+
+
+def plain_grads(q, k, v, dout, causal, window):
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_ref(*qkv, causal=causal, window=window)
+    return torch.autograd.grad(o, qkv, dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", range(len(FLASH_BWD_SHAPES)))
+def test_flash_backward_matches_plain(cuda, shape, dtype):
+    """dq, dk, dv through ``FlashAttention`` (one launch of each backward
+    kernel) against autograd of the plain version: fp32 2e-5 and bf16 2e-2
+    of each gradient's largest magnitude; rows that see no key get 0."""
+    B, Hq, Hkv, Sq, Sk, dh, causal, window = FLASH_BWD_SHAPES[shape]
+    q, k, v = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, dh, seed=shape)
+    dout = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, dh, seed=99)[0]
+    before = dict(fa_ops.LAUNCHES)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*qkv, causal=causal, window=window)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert {n: fa_ops.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, **{n: 1 for n in fa_ops.BWD_KERNELS}}
+    want = plain_grads(q, k, v, dout, causal, window)
+    for t, w in zip(qkv, want):
+        err = float((t.grad.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert torch.isfinite(t.grad).all() and err <= TOL[dtype], err
+    blind = (flash_attention_ref(q, k, v, causal=causal, window=window)
+             == 0).all(-1)
+    assert torch.all(qkv[0].grad[blind] == 0)
+    if Sq > Sk + window > window > 0:
+        assert blind.any()
+
+
+def test_flash_backward_in_the_model_layout_and_repeatable(cuda):
+    """BSHD views (the model's) give the BHSD gradients, and a second run
+    repeats the first bit for bit (no atomics)."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 2, 10, 2, 150, 150, 64)
+    dout = make_flash(cuda, torch.bfloat16, 2, 10, 2, 150, 150, 64, 5)[0]
+
+    def grads(layout):
+        ts = [t.transpose(1, 2) if layout == "BSHD" else t
+              for t in (q, k, v, dout)]
+        qkv = [t.detach().contiguous().requires_grad_() for t in ts[:3]]
+        fa_ops.flash_attention(*qkv, causal=True, layout=layout).backward(
+            ts[3].contiguous())
+        return [t.grad.transpose(1, 2) if layout == "BSHD" else t.grad
+                for t in qkv]
+    a, b, c = grads("BHSD"), grads("BSHD"), grads("BHSD")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_flash_with_grad_never_returns_an_output_without_grad_fn(cuda):
+    q, k, v = make_flash(cuda, torch.bfloat16, 1, 4, 2, 64, 64, 64)
+    for layout in ("BHSD", "BSHD"):
+        for which in range(3):
+            ts = [t.clone() for t in (q, k, v)]
+            ts[which].requires_grad_()
+            assert fa_ops.flash_attention(
+                *ts, layout=layout).grad_fn is not None
+    with torch.no_grad():
+        assert fa_ops.flash_attention(
+            q.requires_grad_(), k, v).grad_fn is None
+
+
+def test_flash_backward_refuses_mla_widths(cuda):
+    """(192, 128) has no backward kernel: a gradient request raises before
+    anything runs, and never falls back to the plain version."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 192)
+    v = v[..., :128].contiguous()
+    before = dict(fa_ops.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fa_ops.flash_attention(q.requires_grad_(), k, v)
+    assert fa_ops.LAUNCHES == before
+    with torch.no_grad():                    # inference still runs
+        assert fa_ops.flash_attention(q, k, v).shape == (1, 2, 64, 128)
+
+
 # ----------------------------------------------------------- MoE FFN
 @pytest.mark.parametrize("shared", [0, 1])
 def test_moe_apply_on_the_card_matches_the_cpu_without_syncing(cuda, shared):
@@ -617,3 +711,34 @@ def test_hubert_on_the_card_matches_the_cpu(cuda):
     got, _ = T.forward_hidden(cfg, _to(params, cuda),
                               {"frames": frames.to(cuda)})
     assert (got.cpu() - want).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "qwen1.5-0.5b", "dbrx-132b"])
+def test_reduced_training_on_the_card_matches_the_cpu(cuda, name):
+    """Five steps of the reduced fp32 model (dh 64, so B3 and its backward
+    take it) on the card against the CPU from the same weights: losses
+    within 1e-5, the parameters within 1e-5 relative L2 over all leaves
+    (a leaf of a few lr, such as a zero-initialised bias, moves apart by
+    more of its own norm: AdamW steps every element by about lr)."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.training.tree import flatten
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config(name), head_dim=64)
+    params = init_params(cfg, 0, device="cpu")
+    dcfg = DataConfig(cfg.vocab_size, seq_len=80, global_batch=4)
+    before = fa_ops.LAUNCHES["flash_attention_bwd_dq"]
+    runs = [train(cfg, dcfg, TrainConfig(steps=5, lr=1e-3, device=dev),
+                  params=params) for dev in ("cpu", "cuda")]
+    assert fa_ops.LAUNCHES["flash_attention_bwd_dq"] - before \
+        == 5 * cfg.n_layers
+    for a, b in zip(runs[1]["losses"], runs[0]["losses"]):
+        assert abs(a - b) <= 1e-5
+    a = torch.cat([p.detach().cpu().reshape(-1)
+                   for p in flatten(runs[1]["params"])[0]])
+    b = torch.cat([p.detach().reshape(-1)
+                   for p in flatten(runs[0]["params"])[0]])
+    assert torch.linalg.vector_norm(a - b) \
+        <= 1e-5 * torch.linalg.vector_norm(b)
