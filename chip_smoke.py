@@ -9,7 +9,9 @@ Phases, in order; any failure exits nonzero:
   2. build:   the four kernel sources compiled from
               src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/
               (B1, B2, B3 and B3's backward), one nvcc process per source,
-              all started together.
+              all started together; each bf16 backward instance's registers,
+              spills and any wgmma serialisation from ptxas's report, and a
+              failure if one of them spills.
   3. kernels: each kernel against its plain PyTorch version, timed with
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
@@ -42,7 +44,8 @@ Phases, in order; any failure exits nonzero:
               its largest magnitude under the tolerance, between a floor
               (bf16: P rounded; fp32: the plain gradient in float64) and a
               fault (a key tile dropped) read in the same run; timed beside
-              its bound and SDPA's backward.
+              its bound and SDPA's backward, and each of its three kernels
+              (D, dK/dV, dQ) timed alone.
   4. small:   a reduced fp32 engine on the GPU (kernels) against the same
               engine on the CPU (plain attention), under the fused step, the
               split schedule and the three dense mode combinations: identical
@@ -850,6 +853,12 @@ def flash_bwd_kernel_phase(dev, flush):
         call = lambda: ops.flash_attention_bwd(q, k, v, fwd_out, lse, dout,
                                                causal=causal, window=window)
         ms = time_ms(call, 10, flush)
+        # each kernel alone, on the D pass's statistics (these launches
+        # count in LAUNCHES like any other; the train phase reads its own)
+        _, launches = ops._backward_passes(q, k, v, fwd_out, lse, dout,
+                                           causal, window, "BHSD")
+        launches["flash_attention_bwd_dot"]()
+        per_kernel = {n: time_ms(fn, 10, flush) for n, fn in launches.items()}
         plain = time_ms(lambda: ref_grads(q, k, v, dout, causal, window), 2,
                         flush)
         sq = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -874,8 +883,14 @@ def flash_bwd_kernel_phase(dev, flush):
             tol=f"{TOL[dname]} of each gradient's max |value|")
         results[name].update(kv_shape=list(k.shape), causal=causal,
                              window=window, errors=errs, floor=floor,
-                             fault=fault, rows_without_keys=int(blind.sum()))
-        del q, k, v, dout, qkv, out, got, want, fwd_out, lse
+                             fault=fault, rows_without_keys=int(blind.sum()),
+                             dot_ms=per_kernel["flash_attention_bwd_dot"],
+                             dkdv_ms=per_kernel["flash_attention_bwd_dkdv"],
+                             dq_ms=per_kernel["flash_attention_bwd_dq"])
+        log(f"B3 backward {name}: per kernel D {results[name]['dot_ms']:.4f}"
+            f" dK/dV {results[name]['dkdv_ms']:.4f} dQ "
+            f"{results[name]['dq_ms']:.4f} ms (each alone, L2 flushed)")
+        del q, k, v, dout, qkv, out, got, want, fwd_out, lse, launches
         torch.cuda.empty_cache()
     return results
 
@@ -2511,9 +2526,12 @@ def train_profile(cfg, dcfg):
     us = {e.key: e.self_device_time_total for e in prof.key_averages()
           if e.self_device_time_total > 0}
     busy = sum(us.values()) / 2 / 1e3
-    pick = lambda part: sum(t for k, t in us.items() if part in k) / 2 / 1e3
-    fwd, dkdv, dq, dot = (pick("flash_kernel"), pick("dkdv_kernel"),
-                          pick("dq_kernel"), pick("dot_kernel"))
+    pick = lambda *parts: sum(t for k, t in us.items()
+                              if any(part in k for part in parts)) / 2 / 1e3
+    # the backward's passes: the bf16 wgmma kernels or the fp32 ones
+    fwd, dkdv, dq, dot = (pick("flash_kernel"),
+                          pick("dkdv_wgmma", "dkdv_kernel"),
+                          pick("dq_wgmma", "dq_kernel"), pick("dot_kernel"))
     bwd = dkdv + dq + dot
     top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
     log(f"train --profile: device busy {busy:.1f} ms per step; B3 forward "
@@ -2632,7 +2650,41 @@ def backward_entry(case, launches):
             "launches_by_kernel": by_kernel,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            "dot_ms": case["dot_ms"], "dkdv_ms": case["dkdv_ms"],
+            "dq_ms": case["dq_ms"]}
+
+
+def wgmma_report(log_text):
+    """Per bf16 backward instance (the wgmma kernels) in ptxas's report:
+    {kernel: (registers, spill store bytes, spill load bytes, serialised)}."""
+    import re
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?((?:dkdv|dq)_wgmma"
+                      r"ILi(\d+)ELi(\d+))", line)
+        if m:
+            name = f"{m.group(1)[:m.group(1).index('_wgmma')]} dh "\
+                   f"{m.group(2)} ({m.group(3)} groups)"
+            out[name] = [0, 0, 0, False]
+            continue
+        if "C7512" in line:           # wgmma serialised, named in the line
+            m = re.search(r"((?:dkdv|dq))_wgmmaILi(\d+)ELi(\d+)", line)
+            if m:
+                key = f"{m.group(1)} dh {m.group(2)} ({m.group(3)} groups)"
+                out.setdefault(key, [0, 0, 0, False])[3] = True
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+            name = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def main(argv=None) -> int:
@@ -2678,6 +2730,15 @@ def main(argv=None) -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
+    report = wgmma_report(build.BUILD_LOG.get("flash_attention_bwd", ""))
+    for kname, (regs, st, ld, serial) in sorted(report.items()):
+        log(f"build: B3 backward bf16 {kname}: {regs} registers, spill "
+            f"stores {st} B, loads {ld} B, wgmma "
+            f"{'serialised' if serial else 'pipelined'}")
+    assert len(report) == 2 * len(fa_ops.BWD_HEAD_DIMS), report
+    spilled = {k: v for k, v in report.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"bf16 backward instances spill: {spilled}")
     for kid, warps in (("B1", (1, 4)), ("B2", (1,))):
         log(f"build: {NAMES[kid]}: dynamic shared memory per block " +
             ", ".join(f"{dt} dh {dh} {w} warp(s) "

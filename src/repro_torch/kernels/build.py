@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per kernel: compiler output (ptxas registers / spills)
+# per kernel: compiler output (ptxas registers / spills), kept beside the
+# library so that a library built by an earlier process has it too
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -58,6 +59,9 @@ def build_all(sources: Sequence[Tuple[str, Path]]) -> None:
     for name, source in sources:
         so = _library_path(name, source)
         if so.exists():
+            log = so.with_suffix(".log")
+            if log.exists():
+                BUILD_LOG[name] = log.read_text()
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
@@ -73,6 +77,7 @@ def build_all(sources: Sequence[Tuple[str, Path]]) -> None:
             failed.append(f"nvcc failed for {source}:\n{err}")
             continue
         BUILD_LOG[name] = out + err
+        so.with_suffix(".log").write_text(out + err)
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))

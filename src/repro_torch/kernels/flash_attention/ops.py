@@ -35,6 +35,7 @@ HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
 # but MLA's
 BWD_HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128))
 FOLDED_ROWS = 64               # (position, query head) rows per block
+STATS_PAD = 64                 # the backward's statistics: rows per pad
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches so far (a run resets them to 0 and reads them back to
@@ -47,16 +48,16 @@ BWD_KERNELS = ("flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
 _P = ctypes.c_void_p
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures.  forward: q, k, v, out, lse, strides; B, Hq, Hkv, Sq, Sk,
-# dh, dv, causal, window; scale, dtype, stream.  D pass: out, dout, delta,
-# strides; B, Hq, Sq, dv, dtype; stream.  dK/dV and dQ passes: q, k, v,
-# dout, lse, delta, dq, dk, dv, strides; B, Hq, Hkv, Sq, Sk, dh, dv,
+# dh, dv, causal, window; scale, dtype, stream.  D pass: out, dout, lse,
+# stats, strides; B, Hq, Sq, dv, dtype; stream.  dK/dV and dQ passes: q,
+# k, v, dout, stats, dq, dk, dv, strides; B, Hq, Hkv, Sq, Sk, dh, dv,
 # causal, window; scale, dtype, stream.
 _ARGTYPES = {
     "flash_attention": ([_P] * 5 + [_STRIDES] + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_int, _P]),
-    "flash_attention_bwd_dot": ([_P] * 3 + [_STRIDES] + [ctypes.c_int] * 5
+    "flash_attention_bwd_dot": ([_P] * 4 + [_STRIDES] + [ctypes.c_int] * 5
                                 + [_P]),
-    "flash_attention_bwd_dkdv": ([_P] * 9 + [_STRIDES] + [ctypes.c_int] * 9
+    "flash_attention_bwd_dkdv": ([_P] * 8 + [_STRIDES] + [ctypes.c_int] * 9
                                  + [ctypes.c_float, ctypes.c_int, _P]),
 }
 _ARGTYPES["flash_attention_bwd_dq"] = _ARGTYPES["flash_attention_bwd_dkdv"]
@@ -191,10 +192,15 @@ def _no_backward(dh: int, dv: int) -> None:
             f"backward); it takes {BWD_HEAD_DIMS}")
 
 
-def _backward(q, k, v, out, lse, dout, causal, window, layout):
+def _backward_passes(q, k, v, out, lse, dout, causal, window, layout):
     """The three backward kernels on BHSD views (q, k, v, the forward's
-    output and lse, dout); the gradients are stored in ``layout``.
-    Returns (dq, dk, dv) in the layout."""
+    output and lse, dout), not yet launched: ((dq, dk, dv) in ``layout``,
+    fresh, {kernel name: launch}), the launches in ``BWD_KERNELS`` order,
+    each raising if its kernel is refused and run with q's device
+    current.  The D pass writes each row's statistics, (lse in log2
+    units, D) as fp32 pairs (B, Hq, Sq rounded up to 64), which the dK/dV
+    and dQ passes read; bf16 reads q, k, v and dout by TMA, whose bases
+    and strides ``_check`` holds to 16 bytes."""
     B, Hq, Sq, dh = q.shape
     Hkv, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     _no_backward(dh, dv)
@@ -202,7 +208,8 @@ def _backward(q, k, v, out, lse, dout, causal, window, layout):
     _check_grad(dout, out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _DTYPE_CODE[q.dtype]
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    stats = torch.empty((B, Hq, -(-Sq // STATS_PAD) * STATS_PAD, 2),
+                        dtype=torch.float32, device=q.device)
     dq_l, dq = _empty_like_layout(q, layout)
     dk_l, dk = _empty_like_layout(k, layout)
     dv_l, dvt = _empty_like_layout(v, layout)
@@ -213,23 +220,38 @@ def _backward(q, k, v, out, lse, dout, causal, window, layout):
     dot_strides = (ctypes.c_longlong * 6)(*out.stride()[:3],
                                           *dout.stride()[:3])
     lib = _library("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        for name in BWD_KERNELS:
-            if name == "flash_attention_bwd_dot":
-                err = lib.flash_attention_bwd_dot(
-                    out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                    dot_strides, B, Hq, Sq, dv, code, stream)
-            else:
-                err = getattr(lib, name)(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dvt.data_ptr(), strides, B,
-                    Hq, Hkv, Sq, Sk, dh, dv, int(causal), int(window),
-                    1.0 / math.sqrt(dh), code, stream)
+
+    passes = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvt.data_ptr(),
+              strides, B, Hq, Hkv, Sq, Sk, dh, dv, int(causal), int(window),
+              1.0 / math.sqrt(dh), code, stream)
+    args = {"flash_attention_bwd_dot": (
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+        dot_strides, B, Hq, Sq, dv, code, stream),
+        "flash_attention_bwd_dkdv": passes, "flash_attention_bwd_dq": passes}
+
+    def launcher(name):                 # on q's device, made current
+        fn = getattr(lib, name)
+
+        def launch():
+            err = fn(*args[name])
             if err != 0:
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
             LAUNCHES[name] += 1
-    return dq_l, dk_l, dv_l
+        return launch
+    return (dq_l, dk_l, dv_l), {name: launcher(name) for name in BWD_KERNELS}
+
+
+def _backward(q, k, v, out, lse, dout, causal, window, layout):
+    """The three backward kernels on BHSD views (q, k, v, the forward's
+    output and lse, dout); the gradients are stored in ``layout``.
+    Returns (dq, dk, dv) in the layout."""
+    grads, launches = _backward_passes(q, k, v, out, lse, dout, causal,
+                                       window, layout)
+    with torch.cuda.device(q.device):
+        for launch in launches.values():
+            launch()
+    return grads
 
 
 class FlashAttention(torch.autograd.Function):

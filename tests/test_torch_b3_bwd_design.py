@@ -1,19 +1,33 @@
 """The design of B3's backward (``csrc/flash_attention_bwd.cu``), held on
 the CPU.
 
-``emulate_backward`` repeats the three kernels' decomposition in plain
-PyTorch: D = rowsum(dO * O); the dK/dV pass over blocks of 64 keys of one
-(batch, kv head), each walking only the tiles of folded query rows
+``emulate_backward`` repeats the kernels' decomposition in plain PyTorch:
+D = rowsum(dO * O) and each row's lse in log2 units; P recomputed from
+them, dV += P^T dO, dS = P * (dP - D), dK += dS^T Q * scale in the dK/dV
+pass and dQ += dS K * scale in the dQ pass.
+
+fp32 (the CUDA-core kernels): the dK/dV pass over blocks of 64 keys of
+one (batch, kv head), each walking the tiles of folded query rows
 (position * r + head-in-group; 64 rows, 32 at dh 128) that can see one of
-its keys, P recomputed from the forward's log-sum-exp in log2 units, dV
-+= P^T dO, dS = P * (dP - D), dK += dS^T Q * scale; the dQ pass over
-tiles of 64 folded rows, walking the key tiles (64 keys, 32 in fp32)
-that its rows see, dQ += dS K * scale.  In bf16 P and dS are rounded to
-bf16 before their products, as the kernels' A operands are.  Every tile
-the kernels skip is checked to hold no visible (row, key) pair.  Held
-against autograd of the plain version (``flash_attention_ref``) on
-inputs made with numpy from a seed: fp32 2e-5 and bf16 2e-2 of each
-gradient's largest magnitude."""
+its keys; the dQ pass over tiles of 64 folded rows, walking the key tiles
+(32 keys) they see.
+
+bf16 (the wgmma kernels): per query head, 64 x 64 tiles.  A dK/dV block
+owns 128 keys of one (batch, kv head), a consumer group 64 of them, and
+walks for each of the r query heads the 64-position tiles that see one of
+the block's keys (above dh 64 once per 64-column chunk: the same sums); a
+dQ block owns 64 positions per consumer group (three groups at dh 64, two
+above) of one query head and walks the 64-key tiles they see.  Every tile
+a group meets is classed from its positions and keys as the kernels class
+it -- interior (every pair visible: no mask), masked, or skipped (no
+visible pair) -- and the class is checked against the mask pair by pair;
+P and dS are rounded to bf16 before their products, as the kernels'
+shared-memory operands are.
+
+Every tile the kernels do not walk is checked to hold no visible (row,
+key) pair.  Held against autograd of the plain version
+(``flash_attention_ref``) on inputs made with numpy from a seed: fp32 2e-5
+and bf16 2e-2 of each gradient's largest magnitude."""
 
 import math
 
@@ -27,8 +41,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LOG2E = 1.4426950408889634
-KEYS_PER_BLOCK = 64                         # dK/dV: 16 keys a warp, 4 warps
-ROWS_PER_BLOCK = 64                         # dQ: 16 rows a warp, 4 warps
+KEYS_PER_BLOCK = 64                         # fp32 dK/dV: 16 keys a warp
+ROWS_PER_BLOCK = 64                         # fp32 dQ: 16 rows a warp
+GROUP = 64             # bf16: keys (dK/dV) or positions (dQ) of a group
+DKDV_GROUPS = 2        # bf16 dK/dV: consumer groups a block
+SKIP, MASKED, INTERIOR = 0, 1, 2
 
 
 def query_tile(dh):
@@ -66,8 +83,169 @@ def plain_lse(q, k, causal, window):
     return torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
 
 
+def dq_groups(dh):
+    """bf16 dQ: consumer groups a block."""
+    return 3 if dh <= 64 else 2
+
+
+def band(causal, window):
+    """The offsets q_pos - k_pos a row sees: [dmin, dmax]."""
+    return (0 if causal else -(1 << 30), window - 1 if window > 0 else 1 << 30)
+
+
+def tile_class(q0, nq, k0, nk, Sq, Sk, causal, window):
+    """The kernels' class of positions [q0, q0 + nq) by keys [k0, k0 + nk):
+    from the tile's corners alone."""
+    dmin, dmax = band(causal, window)
+    qb, kb = min(q0 + nq, Sq) - 1, min(k0 + nk, Sk) - 1
+    if qb < q0 or kb < k0:
+        return SKIP
+    lo, hi = q0 - kb, qb - k0
+    if hi < dmin or lo > dmax:
+        return SKIP
+    full = q0 + nq <= Sq and k0 + nk <= Sk
+    return INTERIOR if full and lo >= dmin and hi <= dmax else MASKED
+
+
+def visible_pairs(q0, nq, k0, nk, Sq, Sk, causal, window):
+    """(nq, nk) booleans: which (position, key) pairs of the tile are seen
+    (positions or keys past the end: not)."""
+    dmin, dmax = band(causal, window)
+    q = torch.arange(q0, q0 + nq)[:, None]
+    kk = torch.arange(k0, k0 + nk)[None, :]
+    return (q < Sq) & (kk < Sk) & (q - kk >= dmin) & (q - kk <= dmax)
+
+
+def check_class(cls, vis):
+    """The class agrees with the tile's pairs: skipped holds no visible
+    pair, interior only visible ones, masked both."""
+    if cls == SKIP:
+        assert not vis.any()
+    elif cls == INTERIOR:
+        assert vis.all()
+    else:
+        assert vis.any() and not vis.all()
+
+
+def emulate_bf16_design(q, k, v, out, lse, dout, *, causal, window,
+                        classes=None):
+    """(dq, dk, dv) as the bf16 wgmma kernels compute them, in fp32 with P
+    and dS rounded to bf16 where they meet a product; ``classes`` (a dict)
+    counts the tile classes met."""
+    B, Hq, Sq, dh = q.shape
+    Hkv, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    r = Hq // Hkv
+    sl2 = LOG2E / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh)
+    rnd = lambda x: x.to(torch.bfloat16).float()
+    counts = {} if classes is None else classes
+    lse2 = torch.where(torch.isinf(lse), torch.inf, lse * LOG2E)
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = torch.zeros(B, Hq, Sq, dh)
+    dk = torch.zeros(B, Hkv, Sk, dh)
+    dvv = torch.zeros(B, Hkv, Sk, dv)
+    dmin, dmax = band(causal, window)
+    nq = GROUP                              # positions per dK/dV tile
+
+    def rows(x, b, h, p0, n, S):
+        idx = torch.arange(p0, p0 + n)
+        live = (idx < S)[:, None]
+        return torch.where(live, x[b, h, idx.clamp(max=S - 1)].float(), 0.)
+
+    def stats(b, h, p0, n):
+        idx = torch.arange(p0, p0 + n)
+        live = idx < Sq
+        c = idx.clamp(max=Sq - 1)
+        return (torch.where(live, lse2[b, h, c], torch.inf),
+                torch.where(live, delta[b, h, c], 0.))
+
+    def tile(b, h, hk, p0, k0, n_p, n_k):
+        """P and dS of positions [p0, p0 + n_p) by keys [k0, k0 + n_k) of
+        head h, classed and checked; None if skipped."""
+        cls = tile_class(p0, n_p, k0, n_k, Sq, Sk, causal, window)
+        vis = visible_pairs(p0, n_p, k0, n_k, Sq, Sk, causal, window)
+        check_class(cls, vis)
+        counts[cls] = counts.get(cls, 0) + 1
+        if cls == SKIP:
+            return None
+        Qt, dOt = rows(q, b, h, p0, n_p, Sq), rows(dout, b, h, p0, n_p, Sq)
+        Kt, Vt = rows(k, b, hk, k0, n_k, Sk), rows(v, b, hk, k0, n_k, Sk)
+        l2, D = stats(b, h, p0, n_p)
+        p = torch.exp2(Qt @ Kt.T * sl2 - l2[:, None])
+        if cls == MASKED:                    # interior tiles: no mask code
+            p = torch.where(vis, p, 0.)
+        ds = p * (dOt @ Vt.T - D[:, None])
+        return p, ds, Qt, dOt, Kt
+
+    for b in range(B):
+        for hk in range(Hkv):
+            # dK/dV: blocks of DKDV_GROUPS x 64 keys, per query head the
+            # tiles of nq positions that see one of the block's keys
+            for n0 in range(0, Sk, DKDV_GROUPS * GROUP):
+                n_hi = min(n0 + DKDV_GROUPS * GROUP, Sk)
+                qt_lo = n0 // nq if causal else 0
+                q_end = min(Sq, n_hi - 1 + window) if window > 0 else Sq
+                walked = range(qt_lo, -(-q_end // nq)) \
+                    if q_end > qt_lo * nq else range(0)
+                for qt in range(-(-Sq // nq)):
+                    if qt in walked:
+                        continue
+                    for h in range(hk * r, (hk + 1) * r):
+                        assert not visible_pairs(qt * nq, nq, n0, n_hi - n0,
+                                                 Sq, Sk, causal,
+                                                 window).any()
+                for g in range(DKDV_GROUPS):
+                    k0 = n0 + g * GROUP
+                    acc_k = torch.zeros(GROUP, dh)
+                    acc_v = torch.zeros(GROUP, dv)
+                    for h in range(hk * r, (hk + 1) * r):
+                        for qt in walked:
+                            got = tile(b, h, hk, qt * nq, k0, nq, GROUP)
+                            if got is None:
+                                continue
+                            p, ds, Qt, dOt, _ = got
+                            acc_v += rnd(p).T @ dOt
+                            acc_k += rnd(ds).T @ Qt
+                    keys = torch.arange(k0, k0 + GROUP)
+                    live = keys < Sk
+                    dk[b, hk, keys[live]] = acc_k[live] * scale
+                    dvv[b, hk, keys[live]] = acc_v[live]
+        # dQ: blocks of groups x 64 positions of one head, the 64-key tiles
+        # their positions see
+        rows_per_block = dq_groups(dh) * GROUP
+        for h in range(Hq):
+            hk = h // r
+            for m0 in range(0, Sq, rows_per_block):
+                kbeg = max(0, m0 - dmax)
+                kend = min(Sk, min(m0 + rows_per_block, Sq) - dmin)
+                walked = range(kbeg // GROUP, -(-kend // GROUP)) \
+                    if kend > kbeg else range(0)
+                for kt in range(-(-Sk // GROUP)):
+                    if kt not in walked:
+                        assert not visible_pairs(m0, rows_per_block,
+                                                 kt * GROUP, GROUP, Sq, Sk,
+                                                 causal, window).any()
+                for g in range(dq_groups(dh)):
+                    p0 = m0 + g * GROUP
+                    acc = torch.zeros(GROUP, dh)
+                    for kt in walked:
+                        got = tile(b, h, hk, p0, kt * GROUP, GROUP, GROUP)
+                        if got is None:
+                            continue
+                        _, ds, _, _, Kt = got
+                        acc += rnd(ds) @ Kt
+                    pos = torch.arange(p0, p0 + GROUP)
+                    live = pos < Sq
+                    dq[b, h, pos[live]] = acc[live] * scale
+    return dq, dk, dvv
+
+
 def emulate_backward(q, k, v, out, lse, dout, *, causal, window):
-    """(dq, dk, dv) as the three kernels compute them, in fp32."""
+    """(dq, dk, dv) as the three kernels compute them, in fp32: the bf16
+    design's schedule for bf16 inputs, the fp32 kernels' otherwise."""
+    if q.dtype == torch.bfloat16:
+        return emulate_bf16_design(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
     B, Hq, Sq, dh = q.shape
     Hkv, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     r, M = Hq // Hkv, Sq * (Hq // Hkv)
@@ -178,7 +356,12 @@ def plain_grads(q, k, v, dout, causal, window):
 # several key blocks; GQA r = 5 (a position's rows split across tiles);
 # dh 128 (32-row query tiles); dh 80 non-causal, S not a tile multiple;
 # dh 96 with a window that skips query tiles on both sides; Sq > Sk +
-# window (rows that see no key); Sq < Sk
+# window (rows that see no key); Sq < Sk; and for the bf16 design's
+# per-head tiles, whose causal diagonal runs corner to corner: a band of
+# the diagonal and one key behind it (window 2) at dh 128 (two walks), a
+# window edge that no tile boundary meets (window 200), GQA r = 5 over
+# several key and position blocks (the folded rows' diagonal fell
+# mid-tile)
 CASES = {
     "mha_dh64": (1, 2, 2, 200, 200, 64, True, 0),
     "gqa_r5": (1, 10, 2, 70, 70, 64, True, 0),
@@ -187,6 +370,9 @@ CASES = {
     "window_dh96": (1, 3, 1, 260, 260, 96, True, 40),
     "blind_rows": (1, 10, 2, 120, 50, 64, True, 16),
     "sq_lt_sk": (1, 4, 2, 40, 130, 64, True, 0),
+    "diag_band": (1, 2, 2, 200, 200, 128, True, 2),
+    "window_edge": (1, 2, 1, 330, 330, 64, True, 200),
+    "gqa_r5_blocks": (1, 5, 1, 300, 300, 64, True, 0),
 }
 
 
@@ -209,6 +395,39 @@ def test_backward_emulation_matches_plain_autograd(name, dtype):
         err = float((g - w).abs().max() / w.abs().max())
         assert err <= TOL[dtype], (name, err)
     assert torch.all(got[0][blind] == 0) and torch.all(want[0][blind] == 0)
+
+
+# the tile classes each case's bf16 schedule must meet
+CLASSES_MET = {
+    "mha_dh64": {SKIP, MASKED, INTERIOR},
+    "diag_band": {SKIP, MASKED},
+    "window_edge": {SKIP, MASKED, INTERIOR},
+    "gqa_r5_blocks": {SKIP, MASKED, INTERIOR},
+    "noncausal_dh80": {SKIP, MASKED, INTERIOR},   # groups past the end
+    "blind_rows": {SKIP, MASKED},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLASSES_MET))
+def test_bf16_design_meets_every_tile_class(name):
+    """The cases hold the classes they are there for (each tile's class is
+    checked against its pairs inside the emulation): a band of the
+    diagonal leaves no interior tile, a causal diagonal from tile
+    corner to corner one masked tile a row of tiles."""
+    B, Hq, Hkv, Sq, Sk, dh, causal, window = CASES[name]
+    q, k, v, dout = inputs([(B, Hq, Sq, dh), (B, Hkv, Sk, dh),
+                            (B, Hkv, Sk, dh), (B, Hq, Sq, dh)],
+                           torch.bfloat16, 11)
+    out, _ = plain_grads(q, k, v, dout, causal, window)
+    met = {}
+    emulate_bf16_design(q, k, v, out.to(torch.bfloat16),
+                        plain_lse(q, k, causal, window), dout,
+                        causal=causal, window=window, classes=met)
+    assert set(met) == CLASSES_MET[name], met
+    if name == "mha_dh64":        # the diagonal tile, the one below, above
+        assert tile_class(64, 64, 64, 64, Sq, Sk, True, 0) == MASKED
+        assert tile_class(128, 64, 64, 64, Sq, Sk, True, 0) == INTERIOR
+        assert tile_class(0, 64, 64, 64, Sq, Sk, True, 0) == SKIP
 
 
 def test_cpu_wrapper_gradients_are_autograd_of_the_plain_version():

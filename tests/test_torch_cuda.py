@@ -492,6 +492,57 @@ def test_flash_backward_matches_plain(cuda, shape, dtype):
         assert blind.any()
 
 
+# bf16 only, the wgmma kernels' own cases: MHA dh 64 at S 4096, where
+# every tile class occurs (interior, the diagonal, skipped); dh 80 and
+# dh 96, read through a second 64-column box whose columns past dh are
+# zeros, GQA with a window edge inside tiles at dh 96
+FLASH_BWD_BF16_SHAPES = [
+    (1, 2, 2, 4096, 4096, 64, True, 0),
+    (1, 4, 4, 300, 300, 80, True, 0),
+    (1, 6, 2, 260, 260, 96, True, 100),
+]
+
+
+@pytest.mark.parametrize("shape", range(len(FLASH_BWD_BF16_SHAPES)))
+def test_flash_backward_bf16_design_cases(cuda, shape):
+    """dq, dk, dv of the bf16 backward against autograd of the plain
+    version in fp32, within 2e-2 of each gradient's largest magnitude."""
+    B, Hq, Hkv, Sq, Sk, dh, causal, window = FLASH_BWD_BF16_SHAPES[shape]
+    q, k, v = make_flash(cuda, torch.bfloat16, B, Hq, Hkv, Sq, Sk, dh,
+                         seed=shape)
+    dout = make_flash(cuda, torch.bfloat16, B, Hq, Hkv, Sq, Sk, dh, 7)[0]
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa_ops.flash_attention(*qkv, causal=causal, window=window).backward(dout)
+    torch.cuda.synchronize()
+    want = plain_grads(*(t.float() for t in (q, k, v, dout)), causal, window)
+    for t, w in zip(qkv, want):
+        err = float((t.grad.float() - w).abs().max() / w.abs().max())
+        assert torch.isfinite(t.grad).all() and err <= 2e-2, err
+
+
+def test_flash_backward_reads_bshd_slices_of_one_qkv_tensor(cuda):
+    """q, k and v as BSHD slices of one (B, S, 3, H, dh) tensor (bases 2 H
+    dh bytes apart, the position stride 3 H dh): the tensor maps take the
+    slices' own strides; gradients within bf16 2e-2 of the plain ones."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H, dh = 2, 300, 4, 64
+    x = torch.randn(B, S, 3, H, dh, generator=g, device=cuda)
+    dout = torch.randn(B, S, H, dh, generator=g, device=cuda)
+    qkv = x.to(torch.bfloat16).requires_grad_()
+    fa_ops.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                           causal=True, layout="BSHD").backward(
+                               dout.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    ref = qkv.detach().float().requires_grad_()
+    flash_attention_ref(*(ref[:, :, i].transpose(1, 2) for i in range(3)),
+                        causal=True).backward(
+                            dout.to(torch.bfloat16).float().transpose(1, 2))
+    for i in range(3):
+        got, w = qkv.grad[:, :, i].float(), ref.grad[:, :, i]
+        err = float((got - w).abs().max() / w.abs().max())
+        assert torch.isfinite(got).all() and err <= 2e-2, (i, err)
+
+
 def test_flash_backward_in_the_model_layout_and_repeatable(cuda):
     """BSHD views (the model's) give the BHSD gradients, and a second run
     repeats the first bit for bit (no atomics)."""
