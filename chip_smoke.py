@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile] [--out PATH]
 
-Phases, in order; any failure exits nonzero:
+Phases, in order (12 runs right after 7, on phase 5's weights); any
+failure exits nonzero:
 
   1. card:    the card's name and power limit (nvidia-smi); TF32 off.
   2. build:   the four kernel sources compiled from
@@ -75,7 +76,9 @@ Phases, in order; any failure exits nonzero:
               P rounded, the noise floor; a page dropped, a fault the
               limit must catch).  With --profile the steps after the
               checked ones are traced (device activity only) and their busy
-              and idle shares printed.
+              and idle shares printed.  Each run logs the pool shards that
+              held pages, each device's most heads after a step and its
+              heads after the run, and the remote pages staged per call.
   6. probe:   phase 5's two runs again on the same weights and requests
               under the per-module probe (EngineConfig(trace_modules=True):
               the traced twins, one device-synchronised span per embed,
@@ -143,6 +146,25 @@ Phases, in order; any failure exits nonzero:
               against 10 straight.  ms per step, tokens/s, peak memory,
               the model FLOP share; with --profile B3's forward and
               backward device time per step.
+ 12. plan:    the paper's planning stack over phase 5's traffic: the port's
+              sigma* search (repro_torch.core.parallelizer) plans
+              qwen3-14b on the paper testbed (4 A100, 2 + 2 3090 on two
+              hosts, 4 P100; batch 16, the prompts' mean length, 32 new
+              tokens) and logs the plan and its host search time; phase
+              5's requests are served on phase 5's weights with the
+              plan's primary workers and attention pool as the engine's
+              roles (12 pool shards on this card, 11 of them remote to
+              the anchor, staged through the exchange), under the fused
+              step and the split schedule, with phase 5's gates and
+              logs, and more than two shards must hold pages; the
+              elastic controller fails the anchor primary (the new plan
+              must leave it out) and rejoins it (the primary count must
+              come back); the three simulated systems (Hetis, HexGen,
+              Splitwise) serve tests/test_sim.py's sharegpt trace with
+              llama-70b on the paper testbed, each request that can be
+              admitted served before the horizon.  The planner's cost
+              and the simulator's clock are the cost model's, for its
+              A100/3090/P100 classes, not measurements of this card.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -1280,14 +1302,23 @@ def rows_of(idx, mode):
             int(idx[0].shape[0]))
 
 
+N_REQ, NEW_TOKENS = 16, 32
+
+
+def prompt_lengths(rng):
+    """The engine phases' prompt lengths: N_REQ draws of 128-1024
+    tokens, the first draws of ``submit_requests``' generator."""
+    return rng.integers(128, 1025, N_REQ)
+
+
 def submit_requests(eng, cfg, seed):
     """The engine phases' 16 requests: prompts of 128-1024 tokens drawn
     from ``seed``, 32 new tokens each.  Returns (n_req, new_tokens,
     prompt lengths)."""
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
-    n_req, new_tokens = 16, 32
-    prompt_lens = rng.integers(128, 1025, n_req)
+    n_req, new_tokens = N_REQ, NEW_TOKENS
+    prompt_lens = prompt_lengths(rng)
     for i, n in enumerate(prompt_lens):
         eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
             0, cfg.vocab_size, int(n))], max_new_tokens=new_tokens))
@@ -1302,20 +1333,25 @@ def span_ms(eng, name, skip=()):
     return durs, statistics.median(durs), sorted(durs)[int(0.9 * len(durs))]
 
 
-def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
+def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
+                 cluster=None, roles=([0], [1])):
     """Serve 16 requests through the full-width engine under ``mode``
     ("fused" or "split") and hold two of its calls against plain re-runs;
     with ``probe``, under the per-module probe (``trace_modules=True``:
-    the paged calls through their traced twins).  The kernel launch
+    the paged calls through their traced twins).  ``cluster`` (default:
+    an A100 and a 3090) and ``roles`` ((primary ids, pool ids)) are the
+    engine's simulated cluster and its workers.  The kernel launch
     counts are set to 0 just before the run and read just after it."""
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.models import transformer as T
     from repro_torch.serving import EngineConfig, InferenceEngine
 
+    planned = cluster is not None
+    cluster = cluster or ClusterSpec.build([("A100", 1), ("3090", 1)])
     eng = InferenceEngine(
-        cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
-        primary_ids=[0], pool_ids=[1],
+        cfg, params, cluster, primary_ids=list(roles[0]),
+        pool_ids=list(roles[1]),
         engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
                                 prefill_chunk=64, telemetry=True,
                                 trace_modules=probe, step_mode=mode),
@@ -1360,17 +1396,44 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
         def install(fn):
             getattr(eng, wrapped).fn = fn
 
-    def rerun(p, before_k, before_v, idx, attn_fn):
-        """The call's logits re-run from the pre-call pools with
-        ``attn_fn`` in place of the kernel."""
-        wk = {d: t.clone() for d, t in before_k.items()}
-        wv = {d: t.clone() for d, t in before_v.items()}
+    anchor = eng.kv.anchor
+
+    def written(kps, vps, idx):
+        """Copies of the pool memory a call can write: the anchor's pools
+        whole (scatters, staging) and, in every other shard, the pages
+        its writeback lanes name and its sink.  The rest of the shards
+        stays as it is, so nothing else is copied."""
+        w_dev, w_dst = idx[3], idx[5]
+        out = {}
+        for d in kps:
+            if d == anchor:
+                s = slice(None)
+            else:
+                sink = torch.full((1,), kps[d].shape[1] - 1,
+                                  dtype=torch.long, device=w_dst.device)
+                s = torch.cat([w_dst[w_dev == d].long(), sink])
+            out[d] = (s, kps[d][:, s].clone(), vps[d][:, s].clone())
+        return out
+
+    def put(kps, vps, saved):
+        for d, (s, k, v) in saved.items():
+            kps[d][:, s] = k
+            vps[d][:, s] = v
+
+    def rerun(p, kps, vps, before, idx, attn_fn):
+        """The call's logits re-run with ``attn_fn`` in place of the
+        kernel from the pools as they were before the call: the memory
+        the call wrote is put back to ``before`` for the re-run, and the
+        kernel run's contents are restored after it."""
+        after = written(kps, vps, idx)
+        put(kps, vps, before)
         setattr(ops, kernel, attn_fn)
         try:
-            logits, _, _ = step_fn(cfg, p, wk, wv, eng.kv.anchor,
-                                   eng.kv.sink, *idx)
+            logits, _, _ = step_fn(cfg, p, kps, vps, anchor, eng.kv.sink,
+                                   *idx)
         finally:
             setattr(ops, kernel, kernel_fn)
+            put(kps, vps, after)
         return logits
 
     def rel_l2(a, b):
@@ -1384,8 +1447,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
             return call_fn(p, kps, vps, *idx, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        before_k = {d: t_.clone() for d, t_ in kps.items()}
-        before_v = {d: t_.clone() for d, t_ in vps.items()}
+        before = written(kps, vps, idx)
         torch.cuda.synchronize()
         check_s[0] += time.perf_counter() - t
         layer0 = []                        # layer 0's inputs and output
@@ -1412,10 +1474,10 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
         *a0, o0 = layer0[0]
         r0 = plain()(*a0).float()
         e0 = (o0.float() - r0).abs()
-        logits = out[0]
-        ref = rerun(p, before_k, before_v, idx, plain())
-        floor = rerun(p, before_k, before_v, idx, plain(round_p=True))
-        fault = rerun(p, before_k, before_v, idx, plain(wrong_page=True))
+        logits, kps, vps = out
+        ref = rerun(p, kps, vps, before, idx, plain())
+        floor = rerun(p, kps, vps, before, idx, plain(round_p=True))
+        fault = rerun(p, kps, vps, before, idx, plain(wrong_page=True))
         assert ops.LAUNCHES == launches
         del moe.calls[n_moe:]
         n_dec, n_pre, lanes = rows_of(idx, mode)
@@ -1434,7 +1496,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
         for k in kinds:
             checks[k] = res
         checked_calls.add(eng.tracer.count(span))
-        del before_k, before_v, ref, floor, fault, layer0, a0, o0, r0, e0
+        del before, ref, floor, fault, layer0, a0, o0, r0, e0
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         check_s[0] += time.perf_counter() - t
@@ -1442,20 +1504,29 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
 
     install(checked)
     # the rows each call packs (its lengths, and its starts or decode
-    # positions), the devices that ever held heads, and per step each
-    # loaded device's measured attention over its analytic time (the
-    # calib before its clamp to [0.25, 4])
-    rows, loaded, ratios = [], set(), collections.defaultdict(list)
+    # positions) and the remote pages it stages (the exchange's gather
+    # lanes: how many, from which shards), the devices that ever held
+    # heads and their most heads after a step, the shards that ever held
+    # pages, and per step each loaded device's measured attention over
+    # its analytic time (the calib before its clamp to [0.25, 4])
+    rows, staged, loaded, ratios = [], [], set(), collections.defaultdict(
+        list)
+    held, heads_peak = set(), collections.defaultdict(float)
     upload, step = eng._upload, eng.step
 
     def recorded_upload(host, nbytes=0):
         rows.append((len(host), host[7].tolist(),
                      host[8 if len(host) == 13 else 11].tolist()))
+        g_dev = host[0][host[0] >= 0]
+        staged.append((int(g_dev.size), len(set(g_dev.tolist()))))
         return upload(host, nbytes)
 
     def recorded_step():
         out = step()
         loaded.update(w.device_id for w in eng.workers if w.heads > 0)
+        held.update(d for d, part in eng.kv.partitions.items() if part.used)
+        for w in eng.workers:
+            heads_peak[w.device_id] = max(heads_peak[w.device_id], w.heads)
         if probe and eng.attn_reqs:
             r0 = next(iter(eng.attn_reqs.values()))
             snap = eng.snapshot("attn/device/")
@@ -1506,6 +1577,9 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
     tag = (f"{cfg.name} {cfg.n_layers}L, {cfg.kv_dtype} pools, {mode}"
            if cfg.kv_cache_dtype else f"{cfg.name} {cfg.n_layers}L, {mode}")
     tag += ", probe" if probe else ""
+    tag += (f", planned roles {len(roles[0])} primaries + {len(roles[1])} "
+            f"pool" if planned else "")
+    n_staged = [n for n, _ in staged]
     moe_T, moe_capped = moe.summary()
     out = dict(config=cfg.name, layers=cfg.n_layers,
                kv_dtype=cfg.kv_dtype, mode=mode, launches=launches,
@@ -1518,6 +1592,11 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
                    win_step0 + 1, steps], window_wall_s=win_wall,
                redispatches=int(eng.metrics["redispatches"]),
                evictions=int(eng.metrics["evictions"]), rows=rows,
+               shards=len(eng.kv.partitions), shards_held=sorted(held),
+               heads_peak=dict(heads_peak),
+               heads_after={w.device_id: w.heads for w in eng.workers},
+               staged_pages=n_staged,
+               staged_shards_max=max(m for _, m in staged),
                tokens={r.rid: r.output for r in eng.finished})
     log(f"engine ({tag}): {n_req} requests, prompts {n_prompt} tokens, "
         f"generated {gen}; {steps} steps, {int(eng.metrics['model_calls'])} "
@@ -1526,6 +1605,12 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False):
         f"{gen / wall:.2f} generated tokens/s; "
         f"{(gen + n_prompt) / wall:.1f} tokens/s incl. prompts; peak memory "
         f"{peak_gb:.1f} GB")
+    log(f"engine ({tag}): pool shards holding pages {len(held)} of "
+        f"{len(eng.kv.partitions)} {sorted(held)}; most heads per device "
+        f"after a step {dict(heads_peak)}, after the run "
+        f"{out['heads_after']}; remote pages staged per call median "
+        f"{statistics.median(n_staged):g} max {max(n_staged)}, from up to "
+        f"{out['staged_shards_max']} shards")
     if moe.calls:
         log(f"engine ({tag}): MoE calls {len(moe.calls)}, {moe_capped} "
             f"capped (T > 64); token rows T seen (T: calls) {moe_T}")
@@ -1968,6 +2053,109 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
             f"{marker_us / 1e3:.2f} ms in all)")
         out.update(profile_moe_us=moe_us, profile_moe_calls=calls)
     return out
+
+
+# -------------------------------------------------------------- plan phase
+# the simulator's run: tests/test_sim.py's trace and model on the paper
+# testbed (the cost model's clock, not this card's)
+SIM_TRACE = dict(workload="sharegpt", rate=1.5, duration=30, seed=0)
+SIM_HORIZON_S = 300.0
+
+
+def plan_phase(dev, profile, cfg, params):
+    """Phase 12: the port's sigma* search plans qwen3-14b on the paper
+    testbed for phase 5's traffic; phase 5's requests are served on the
+    same weights with the planned primary and attention-pool roles under
+    the fused step and the split schedule (phase 5's gates, and more than
+    two pool shards holding pages); the elastic controller fails the
+    anchor primary and re-plans; the three simulated systems serve one
+    trace."""
+    from repro_torch import sim
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.costmodel import LLAMA_70B
+    from repro_torch.core.parallelizer import RequestDistribution, search
+    from repro_torch.distributed import ElasticController
+
+    t_phase = time.perf_counter()
+    cluster = ClusterSpec.paper_testbed()
+    prefill = int(round(float(prompt_lengths(np.random.default_rng(0))
+                              .mean())))
+    r = RequestDistribution(batch=N_REQ, prefill_len=prefill,
+                            decode_ctx=prefill + NEW_TOKENS // 2,
+                            avg_output_len=NEW_TOKENS)
+    plan = search(cluster, cfg.profile(), r)
+    primary = [d.device_id for d in plan.primary_workers]
+    pool = [d.device_id for d in plan.attention_workers]
+    for line in plan.summary().splitlines():
+        log(f"plan: {line}")
+    log(f"plan: {r}; primaries {primary}, attention pool {pool}; search "
+        f"{plan.search_seconds * 1e3:.2f} ms of host time; the modeled "
+        f"cost is the cost model's, for its A100/3090/P100 classes, not a "
+        f"measurement of this card")
+    assert pool and primary and not set(primary) & set(pool), plan.summary()
+
+    runs = {}
+    for mode in ("fused", "split"):
+        runs[mode] = engine_phase(dev, profile, cfg, params, mode,
+                                  cluster=cluster, roles=(primary, pool))
+        free(f"the planned {mode} engine and its pools")
+        held = runs[mode]["shards_held"]
+        assert len(held) > 2, f"{mode}: pool shards holding pages {held}"
+
+    # a primary fails: the controller re-plans over the survivors; it
+    # rejoins: the plan is whole again (host only: the engine is not
+    # restarted on the new plan, nor is the reference's)
+    t0 = time.perf_counter()
+    ec = ElasticController(cluster, cfg.profile(), r)
+    assert [d.device_id for d in ec.plan.primary_workers] == primary
+    anchor = primary[0]
+    failed = [d.device_id for d in ec.fail(anchor).primary_workers]
+    failed_pool = [d.device_id for d in ec.plan.attention_workers]
+    rejoined = [d.device_id for d in ec.join(anchor).primary_workers]
+    elastic_s = time.perf_counter() - t0
+    log(f"plan: anchor primary {anchor} failed: primaries {failed}, pool "
+        f"{failed_pool}; rejoined: primaries {rejoined}; events "
+        f"{[(e.kind, e.device_id, e.detail) for e in ec.events]}; "
+        f"{elastic_s * 1e3:.1f} ms of host time")
+    assert anchor not in failed, failed
+    assert len(rejoined) == len(primary), (rejoined, primary)
+
+    # the three systems the paper compares, on the cost model's clock
+    t0 = time.perf_counter()
+    trace = sim.make_trace(**SIM_TRACE)
+    simulated = {}
+    for system in (sim.HetisSystem, sim.HexgenSystem, sim.SplitwiseSystem):
+        res = sim.simulate(system(LLAMA_70B, ClusterSpec.paper_testbed()),
+                           trace, SIM_TRACE["workload"], SIM_TRACE["rate"],
+                           max_sim_seconds=SIM_HORIZON_S)
+        simulated[res.system] = dict(
+            requests=len(trace), finished=len(res.finished),
+            served=len(res.served), duration_s=res.duration,
+            throughput=res.throughput(),
+            normalized_latency=res.normalized_latency(),
+            p95_ttft=res.p95_ttft(), p95_tpot=res.p95_tpot())
+        log(f"plan: simulated {res.system} ({LLAMA_70B.name}, paper testbed,"
+            f" {SIM_TRACE['workload']} at {SIM_TRACE['rate']} req/s for "
+            f"{SIM_TRACE['duration']} s; simulated clock of the cost "
+            f"model's A100/3090/P100 classes, not a measurement of this "
+            f"card): served {len(res.served)} of {len(trace)} in "
+            f"{res.duration:.2f} s, {res.throughput():.4f} req/s, "
+            f"normalised latency {res.normalized_latency():.4f} s/token, "
+            f"p95 TTFT {res.p95_ttft():.4f} s, p95 TPOT "
+            f"{res.p95_tpot():.4f} s")
+        assert res.duration < SIM_HORIZON_S, simulated[res.system]
+        assert len(res.served) == len(res.finished) == len(trace), \
+            simulated[res.system]
+    sim_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    log(f"plan: simulation {sim_s:.2f} s of host time; phase 12 "
+        f"{wall:.1f} s wall")
+    return dict(plan=plan.summary(), primary=primary, pool=pool,
+                request_distribution=dataclasses.asdict(r),
+                search_s=plan.search_seconds, runs=runs,
+                elastic=dict(failed=failed, failed_pool=failed_pool,
+                             rejoined=rejoined, host_s=elastic_s),
+                simulated=simulated, sim_host_s=sim_s, wall_s=wall)
 
 
 # the families phase: published widths; depth (0: all layers), the rows'
@@ -2687,6 +2875,16 @@ def wgmma_report(log_text):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them, logged."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    return card
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2702,11 +2900,7 @@ def main(argv=None) -> int:
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(card)
+    card = card_name()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32: "
@@ -2781,6 +2975,9 @@ def main(argv=None) -> int:
                      for a, b in zip(toks, dense["tokens"][rid]))
     log(f"engine: dense-prefill vs split tokens agree at {same_dense} of "
         f"{total} positions (bf16; B3 and B1 round differently)")
+    free("the dense-prefill engine")
+    # phase 12 on the same weights: the planned roles
+    plan = plan_phase(dev, args.profile, cfg, params)
     del params
     free("qwen3-14b")
 
@@ -2827,8 +3024,9 @@ def main(argv=None) -> int:
     # backward
     training = train_phase(dev, args.profile)
 
-    runs = (fused, split, dense, *dbrx.values(), *dense_cfgs.values(),
-            *probe.values(), *families.values(), training)
+    runs = (fused, split, dense, *plan["runs"].values(), *dbrx.values(),
+            *dense_cfgs.values(), *probe.values(), *families.values(),
+            training)
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
@@ -2841,6 +3039,7 @@ def main(argv=None) -> int:
              "engine_fused": fused, "engine_split": split,
              "engine_dense_prefill": dense, "engine_dbrx": dbrx,
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
+             "plan": plan,
              "families": families, "b3_backward_cases": b3_bwd,
              "train": training,
              "profile_attention": tau,

@@ -1128,6 +1128,10 @@ class InferenceEngine:
             / self._dense_eff
         return attn_t, dense_t
 
+    def _model_decode_time(self) -> float:
+        attn_t, dense_t = self._model_decode_parts()
+        return attn_t + dense_t
+
     # ------------------------------------------------------------------- run
     def run_until_drained(self, max_steps: int = 10000) -> bool:
         """Step until every request finishes or ``max_steps`` elapse.

@@ -132,9 +132,15 @@ class PagedHeadCache:
         """Local sink slot index of one device's pool."""
         return self.partitions[device_id].total
 
+    def slots_per_token_group(self) -> float:
+        return 1.0 / self.page
+
     def bytes_per_slot(self) -> int:
         return int(2 * self.cfg.n_layers * self.page * self.cfg.head_dim
                    * self.dtype.itemsize)
+
+    def free_slots(self, device_id: int) -> int:
+        return self.partitions[device_id].free
 
     def free_bytes(self, device_id: int) -> int:
         """Real free bytes of one device partition — what the dispatcher's
@@ -259,6 +265,10 @@ class PagedHeadCache:
                 K[:, t, g] = self.kpools[dev][:, sl, of]
                 V[:, t, g] = self.vpools[dev][:, sl, of]
         return K.float().cpu().numpy(), V.float().cpu().numpy()
+
+    def block_table(self, rid: int, group: int) -> List[Tuple[int, int]]:
+        """One group's page chain as (device, local slot) pairs."""
+        return list(self.tables.get((rid, group), []))
 
     # -- release / migration --------------------------------------------------------
     def release(self, rid: int) -> int:

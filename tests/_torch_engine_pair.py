@@ -1,7 +1,7 @@
 """The reference's engine and the port's in lockstep, for the port's
 parity tests: the same requests, the same weights (the reference's, handed
-to the port through the bridge) and the same simulated cluster (A100
-primary + 3090 pool shard).  After every step the token streams, the
+to the port through the bridge) and the same simulated cluster (by
+default an A100 primary + a 3090 pool shard).  After every step the token streams, the
 queues, the counters, the pool tables and the clock must be identical."""
 
 import jax
@@ -37,15 +37,18 @@ def assert_same(j, t):
     assert t.clock == pytest.approx(j.clock, rel=1e-12)
 
 
-def engine_pair(jcfg, tcfg, params_np, ecfg):
+def engine_pair(jcfg, tcfg, params_np, ecfg, hosts=HOSTS,
+                primary_ids=(0,), pool_ids=(1,)):
     """Both engines built with ``EngineConfig(**ecfg)`` on the same
-    weights and cluster: (the reference's, the port's on the CPU)."""
+    weights and cluster (``ClusterSpec.build(hosts)``, the given roles):
+    (the reference's, the port's on the CPU)."""
     j = JEngine(jcfg, jax.tree.map(jnp.asarray, params_np),
-                JCluster.build(HOSTS), primary_ids=[0], pool_ids=[1],
-                engine_cfg=JEngineConfig(**ecfg))
+                JCluster.build(hosts), primary_ids=list(primary_ids),
+                pool_ids=list(pool_ids), engine_cfg=JEngineConfig(**ecfg))
     t = TEngine(tcfg, from_jax_params(tcfg, params_np, device="cpu"),
-                TCluster.build(HOSTS), primary_ids=[0], pool_ids=[1],
-                engine_cfg=TEngineConfig(**ecfg), device="cpu")
+                TCluster.build(hosts), primary_ids=list(primary_ids),
+                pool_ids=list(pool_ids), engine_cfg=TEngineConfig(**ecfg),
+                device="cpu")
     assert (t.use_fused, t.use_paged, t.use_paged_prefill) \
         == (j.use_fused, j.use_paged, j.use_paged_prefill)
     return j, t
@@ -66,12 +69,13 @@ def submit_requests(engines, vocab_size, n, lo, hi, max_new, seed=0):
 
 
 def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
-                      seed=0):
+                      seed=0, **cluster):
     """Serve ``n`` requests (prompts of [lo, hi) tokens drawn from
     ``seed``, ``max_new`` new tokens each) on both engines built with
-    ``EngineConfig(**ecfg)``, comparing them after every step.  Returns
-    the port's engine, drained."""
-    j, t = engine_pair(jcfg, tcfg, params_np, ecfg)
+    ``EngineConfig(**ecfg)`` (and ``engine_pair``'s ``cluster`` keywords),
+    comparing them after every step.  Returns the port's engine,
+    drained."""
+    j, t = engine_pair(jcfg, tcfg, params_np, ecfg, **cluster)
     submit_requests((j, t), tcfg.vocab_size, n, lo, hi, max_new, seed)
     for _ in range(200):
         if not (j.queue or j.running or j.prefilling):

@@ -115,6 +115,39 @@ def test_exhaustion_returns_false():
     assert_same_state(j, t)
 
 
+@pytest.mark.parametrize("page", [1, 4, 16])
+def test_slots_per_token_group_equal(page):
+    j = JCache(JConfig(**SPEC), {0: 4}, page_size=page)
+    t = TCache(TConfig(**SPEC), {0: 4}, page_size=page, device="cpu")
+    assert t.slots_per_token_group() == j.slots_per_token_group() == 1 / page
+
+
+def test_free_slots_equal():
+    j, t = make_pair(slots=(8, 3))
+    for kv in (j, t):
+        kv.ensure_capacity(0, 0, 0, 9)          # 3 pages on device 0
+        kv.ensure_capacity(0, 1, 1, 4)          # 1 page on device 1
+    assert [t.free_slots(d) for d in (0, 1)] \
+        == [j.free_slots(d) for d in (0, 1)] == [5, 2]
+    j.release(0)
+    t.release(0)
+    assert [t.free_slots(d) for d in (0, 1)] \
+        == [j.free_slots(d) for d in (0, 1)] == [8, 3]
+
+
+def test_block_table_equal():
+    j, t = make_pair()
+    for kv in (j, t):
+        kv.ensure_capacity(0, 0, 0, 7)
+        kv.ensure_capacity(0, 1, 1, 13)
+        kv.migrate_group(0, 0, 1)
+    for g in range(2):
+        assert t.block_table(0, g) == j.block_table(0, g) \
+            == t.tables[(0, g)]
+    assert t.block_table(0, 1) is not t.tables[(0, 1)]
+    assert t.block_table(5, 0) == j.block_table(5, 0) == []
+
+
 def test_step_plans_match():
     j, t = make_pair()
     for kv in (j, t):
