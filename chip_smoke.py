@@ -2875,16 +2875,6 @@ def wgmma_report(log_text):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def card_name():
-    """The card's name and power limit as nvidia-smi gives them, logged."""
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(card)
-    return card
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2900,7 +2890,11 @@ def main(argv=None) -> int:
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = card_name()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32: "

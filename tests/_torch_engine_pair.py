@@ -1,8 +1,9 @@
 """The reference's engine and the port's in lockstep, for the port's
 parity tests: the same requests, the same weights (the reference's, handed
 to the port through the bridge) and the same simulated cluster (by
-default an A100 primary + a 3090 pool shard).  After every step the token streams, the
-queues, the counters, the pool tables and the clock must be identical."""
+default an A100 primary + a 3090 pool shard).  After every step the token
+streams, the queues, the counters, the pool tables and the clock must be
+identical."""
 
 import jax
 import jax.numpy as jnp
@@ -69,13 +70,12 @@ def submit_requests(engines, vocab_size, n, lo, hi, max_new, seed=0):
 
 
 def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
-                      seed=0, **cluster):
+                      seed=0):
     """Serve ``n`` requests (prompts of [lo, hi) tokens drawn from
     ``seed``, ``max_new`` new tokens each) on both engines built with
-    ``EngineConfig(**ecfg)`` (and ``engine_pair``'s ``cluster`` keywords),
-    comparing them after every step.  Returns the port's engine,
-    drained."""
-    j, t = engine_pair(jcfg, tcfg, params_np, ecfg, **cluster)
+    ``EngineConfig(**ecfg)``, comparing them after every step.  Returns
+    the port's engine, drained."""
+    j, t = engine_pair(jcfg, tcfg, params_np, ecfg)
     submit_requests((j, t), tcfg.vocab_size, n, lo, hi, max_new, seed)
     for _ in range(200):
         if not (j.queue or j.running or j.prefilling):

@@ -7,6 +7,8 @@ reference's engine on the same weights: the same greedy tokens, queues,
 counters, tables and clock after every step, every pool shard's contents
 alike, and both caches' invariants."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -39,20 +41,38 @@ def plan_roles(pl, cl, cm):
     return plan, primary, pool
 
 
-@pytest.mark.parametrize("mode", ["fused", "split"])
-def test_planned_roles_serve_the_reference_tokens(mode):
+@functools.cache
+def reduced_model():
+    """Reduced fp32 qwen3-14b in both packages and the reference's seeded
+    weights as numpy (made once, by one jitted init)."""
+    jcfg = jget_config("qwen3-14b").reduced(dtype="float32")
+    tcfg = tget_config("qwen3-14b").reduced(dtype="float32")
+    params = jax.jit(lambda key: jax_init_params(jcfg, key))(
+        jax.random.PRNGKey(0))
+    return jcfg, tcfg, jax.tree.map(np.asarray, params)
+
+
+@functools.cache
+def served(mode):
+    """Both packages plan the cluster; both engines serve four requests
+    with the plan's roles in lockstep under ``mode``, compared after every
+    step.  Returns the drained (reference, port) engines, the plan's roles,
+    the shards that held pages and, before the first step and after every
+    step, both engines' ``_model_decode_time`` and the port's parts."""
     jplan, jprimary, jpool = plan_roles(jpl, JCluster, jcm)
     tplan, primary, pool = plan_roles(tpl, TCluster, tcm)
     assert (primary, pool, tplan.cost, tplan.summary()) \
         == (jprimary, jpool, jplan.cost, jplan.summary())
-    assert len(primary) + len(pool) > 2
-    jcfg = jget_config("qwen3-14b").reduced(dtype="float32")
-    tcfg = tget_config("qwen3-14b").reduced(dtype="float32")
-    params = jax.tree.map(np.asarray,
-                          jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    jcfg, tcfg, params = reduced_model()
     j, t = engine_pair(jcfg, tcfg, params,
                        dict(max_batch=4, max_seq=64, step_mode=mode),
                        hosts=HOSTS, primary_ids=primary, pool_ids=pool)
+
+    def decode_times():
+        return (j._model_decode_time(), t._model_decode_time(),
+                sum(t._model_decode_parts()), bool(j.attn_reqs))
+
+    times = [decode_times()]
     submit_requests((j, t), tcfg.vocab_size, 4, 8, 9, 5, seed=1)
     held = set()
     for _ in range(200):
@@ -63,9 +83,17 @@ def test_planned_roles_serve_the_reference_tokens(mode):
         assert_same(j, t)
         held.update(d for chain in t.kv.tables.values() for d, _ in chain)
         assert [w.heads for w in t.workers] == [w.heads for w in j.workers]
+        times.append(decode_times())
+    return j, t, primary, pool, held, times
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_planned_roles_serve_the_reference_tokens(mode):
+    j, t, primary, pool, held, _ = served(mode)
+    assert len(primary) + len(pool) > 2
+    vocab = t.cfg.vocab_size
     assert len(t.finished) == 4
-    assert all(len(r.output) == 5 and all(0 <= x < tcfg.vocab_size
-                                          for x in r.output)
+    assert all(len(r.output) == 5 and all(0 <= x < vocab for x in r.output)
                for r in t.finished)
     # the plan's roles were served: more than one shard held pages
     assert len(held) > 1, held
@@ -85,21 +113,11 @@ def test_planned_roles_serve_the_reference_tokens(mode):
 
 def test_model_decode_time_equal():
     """``InferenceEngine._model_decode_time`` (attention + dense modeled
-    step seconds) in both engines after every step, and its parts."""
-    jcfg = jget_config("qwen3-14b").reduced(dtype="float32")
-    tcfg = tget_config("qwen3-14b").reduced(dtype="float32")
-    params = jax.tree.map(np.asarray,
-                          jax_init_params(jcfg, jax.random.PRNGKey(0)))
-    j, t = engine_pair(jcfg, tcfg, params, dict(max_batch=4, max_seq=64))
-    assert t._model_decode_time() == j._model_decode_time() == 1e-4
-    submit_requests((j, t), tcfg.vocab_size, 3, 6, 20, 4, seed=2)
-    seen = 0
-    while j.queue or j.running or j.prefilling:
-        j.step()
-        t.step()
-        assert_same(j, t)
-        want = j._model_decode_time()
-        assert t._model_decode_time() == pytest.approx(want, rel=1e-12)
-        assert t._model_decode_time() == sum(t._model_decode_parts())
-        seen += bool(j.attn_reqs)
-    assert seen > 0
+    step seconds over every planned worker) in both engines before the
+    first step and after every step of the split run, and its parts."""
+    *_, times = served("split")
+    assert times[0][:2] == (1e-4, 1e-4)
+    for want, got, parts, _ in times:
+        assert got == pytest.approx(want, rel=1e-12)
+        assert got == parts
+    assert sum(active for *_, active in times) > 0
