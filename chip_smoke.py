@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--profile] [--out PATH]
 
-Phases, in order (12 runs right after 7, on phase 5's weights); any
-failure exits nonzero:
+Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
+11); any failure exits nonzero:
 
   1. card:    the card's name and power limit (nvidia-smi); TF32 off.
   2. build:   the four kernel sources compiled from
@@ -40,8 +40,12 @@ failure exits nonzero:
               FlashAttention) against autograd of the plain version at
               qwen1.5-0.5b's training shape (8 x 16 heads, dh 64, S 4096,
               causal) in bf16 and fp32, qwen3-14b's GQA at dh 128, dh 96,
-              hubert's dh 80 non-causal, hymba's window, S 1000 and a case
-              whose late rows see no key: each gradient's error relative to
+              hubert's dh 80 non-causal, hymba's window, S 1000, a case
+              whose late rows see no key, and deepseek-v3's MLA (128 MHA
+              heads, q/k 192, v 128, causal) at its train_4k microbatch
+              (S 4096) in bf16 and at S 1024 in fp32 (under --profile the
+              training and MLA cases' device times too): each gradient's
+              error relative to
               its largest magnitude under the tolerance, between a floor
               (bf16: P rounded; fp32: the plain gradient in float64) and a
               fault (a key tile dropped) read in the same run; timed beside
@@ -165,6 +169,22 @@ failure exits nonzero:
               admitted served before the horizon.  The planner's cost
               and the simulator's clock are the cost model's, for its
               A100/3090/P100 classes, not measurements of this card.
+ 13. steps:   repro_torch.launch.steps.build(...).fn, the reference's step
+              functions, at the per-device share of its (16, 16) pod mesh
+              (global batch / 16 rows): qwen1.5-0.5b train_4k at full width
+              and depth (16 x 4096 in 2 microbatches of phase 11's 8 rows;
+              the accumulated gradient equals the mean of phase 11's
+              train_step gradients of the two within fp32 rounding);
+              deepseek-v3-671b train_4k at its published widths and its 3
+              dense layers of 61 (16 x 4096 in 16 microbatches of one row,
+              bf16 AdamW moments; the first microbatch's gradients against
+              plain-attention re-runs under 0.1 between floor and fault,
+              MLA's (192, 128) backward on every layer); 3 steps each with
+              exact B3 launches, finite losses, ms per step, tokens/s and
+              peak memory; qwen3-14b prefill_32k (2 x 32768: a B3 launch a
+              layer, row 0's logits against chunked plain re-runs under
+              0.1 between floor and fault) and decode_32k (8 rows against
+              a seeded dense cache of 32768 positions; ms per token).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -698,8 +718,10 @@ def plain_flash_grads(q, k, v, dout, causal, window, *, round_p=False,
     heads of each kv head and summing their gradients back.  ``round_p``
     rounds P to bf16 where it meets a product (PV and P^T dO): a second
     exact implementation, the bf16 noise floor; ``drop_tile`` leaves keys
-    64-127 out of the backward (P and dS zero there): a fault, one key tile
-    dropped.  With ``dout`` None only the output is computed."""
+    64-127 out of the backward (P and dS zero there), or with ``dout``
+    None out of the forward's softmax: a fault, one key tile dropped.  With
+    ``dout`` None only the output is computed.  A chunk's products run
+    over the keys its rows can see only (causal, window)."""
     B, Hq, Sq, dh = q.shape
     Hkv, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     r = Hq // Hkv
@@ -711,34 +733,40 @@ def plain_flash_grads(q, k, v, dout, causal, window, *, round_p=False,
         dq = torch.empty((B, Hq, Sq, dh), dtype=dtype, device=q.device)
         dK = torch.zeros((B, Hq, Sk, dh), dtype=dtype, device=q.device)
         dV = torch.zeros((B, Hq, Sk, dv), dtype=dtype, device=q.device)
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    dropped = (kp >= 64) & (kp < 128)
     rnd = (lambda x: x.to(torch.bfloat16).to(dtype)) if round_p \
         else (lambda x: x)
     for i0 in range(0, Sq, chunk):
         i1 = min(i0 + chunk, Sq)
+        # the keys a row of the chunk can see: [lo, hi)
+        lo = max(0, i0 - window + 1) if window > 0 else 0
+        hi = max(lo, min(Sk, i1) if causal else Sk)
+        Kc, Vc = K[:, :, lo:hi], V[:, :, lo:hi]
+        kp = torch.arange(lo, hi, device=q.device)[None, :]
+        dropped = (kp >= 64) & (kp < 128)
         qc = q[:, :, i0:i1].to(dtype)
         g = None if dout is None else dout[:, :, i0:i1].to(dtype)
         qp = torch.arange(i0, i1, device=q.device)[:, None]
         ok = (qp >= kp) if causal else torch.ones_like(qp >= kp)
         if window > 0:
             ok &= qp - kp < window
-        s = (qc @ K.transpose(-1, -2) * scale).masked_fill(~ok,
-                                                           float("-inf"))
+        if drop_tile and dout is None:
+            ok &= ~dropped
+        s = (qc @ Kc.transpose(-1, -2) * scale).masked_fill(~ok,
+                                                            float("-inf"))
         p = torch.softmax(s, dim=-1).nan_to_num(0.0)   # no key: 0
         del s
-        o = rnd(p) @ V
+        o = rnd(p) @ Vc
         out[:, :, i0:i1] = o
         if dout is None:
             continue
         D = (g * o).sum(-1, keepdim=True)
         if drop_tile:
             p = p.masked_fill(dropped, 0.0)
-        dV += rnd(p).transpose(-1, -2) @ g
-        ds = p * (g @ V.transpose(-1, -2) - D)
+        dV[:, :, lo:hi] += rnd(p).transpose(-1, -2) @ g
+        ds = p * (g @ Vc.transpose(-1, -2) - D)
         del p
-        dq[:, :, i0:i1] = ds @ K * scale
-        dK += ds.transpose(-1, -2) @ qc * scale
+        dq[:, :, i0:i1] = ds @ Kc * scale
+        dK[:, :, lo:hi] += ds.transpose(-1, -2) @ qc * scale
         del ds
     if dout is None:
         return (out,)
@@ -747,17 +775,30 @@ def plain_flash_grads(q, k, v, dout, causal, window, *, round_p=False,
     return out, dq, dk, dvv
 
 
-def ref_grads(q, k, v, dout, causal, window):
+def ref_grads(q, k, v, dout, causal, window, max_scores=1 << 28):
     """Autograd of the plain version (``flash_attention_ref``), one batch
-    row at a time: (dq, dk, dv) in the inputs' dtype."""
+    row and as many kv heads (with their query heads) at a time as keep
+    a score tensor within ``max_scores`` elements (1 GB of fp32): (dq, dk,
+    dv) in the inputs' dtype."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    outs = []
-    for b in range(q.shape[0]):
-        qkv = [t[b:b + 1].detach().requires_grad_() for t in (q, k, v)]
-        o = flash_attention_ref(*qkv, causal=causal, window=window)
-        outs.append(torch.autograd.grad(o, qkv, dout[b:b + 1]))
-        del o, qkv
-    return [torch.cat(gs) for gs in zip(*outs)]
+    B, Hq, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    r = Hq // Hkv
+    hk = max(1, min(Hkv, max_scores // (r * Sq * Sk)))
+    rows = []
+    for b in range(B):
+        parts = []
+        for h0 in range(0, Hkv, hk):
+            h1 = min(h0 + hk, Hkv)
+            qkv = [t[b:b + 1, a:z].detach().requires_grad_()
+                   for t, a, z in ((q, h0 * r, h1 * r), (k, h0, h1),
+                                   (v, h0, h1))]
+            o = flash_attention_ref(*qkv, causal=causal, window=window)
+            parts.append(torch.autograd.grad(
+                o, qkv, dout[b:b + 1, h0 * r:h1 * r]))
+            del o, qkv
+        rows.append([torch.cat(gs, 1) for gs in zip(*parts)])
+    return [torch.cat(gs) for gs in zip(*rows)]
 
 
 def grad_err(got, want):
@@ -767,16 +808,19 @@ def grad_err(got, want):
     return errs, max(errs)
 
 
-def bound_flash_bwd(q, k, causal, window, dname):
-    """(bound_ms, bound_by, bytes, flops) of the backward: 2.5 times the
-    forward's FLOPs (five products of its size where it has two); q, k,
-    v, o, dO, lse and D read once, dq, dk and dv written once."""
+def bound_flash_bwd(q, k, v, causal, window, dname):
+    """(bound_ms, bound_by, bytes, flops) of the backward: five products
+    per (query row, visible key) and head, S and dQ and dK over q/k's dh,
+    dP and dV over v's dv (2.5 times the forward's FLOPs where dh == dv);
+    q, k, v, o, dO, lse and D read once, dq, dk and dv written once."""
     B, Hq, Sq, dh = q.shape
+    dv = v.shape[3]
     size = q.element_size()
-    nbytes = (3 * q.numel() + 4 * k.numel()) * size \
-        + 2 * B * Hq * Sq * 4 + q.numel() * size
-    flops = 2.5 * 4.0 * dh * B * Hq * visible_pairs(Sq, k.shape[2], causal,
-                                                    window)
+    rows = B * Hq * Sq
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+              + 2 * rows * dv) * size + 2 * rows * 4
+    flops = 2.0 * (3 * dh + 2 * dv) * B * Hq * visible_pairs(
+        Sq, k.shape[2], causal, window)
     return roofline(nbytes, flops, dname) + (nbytes, flops)
 
 
@@ -805,10 +849,18 @@ FLASH_BWD_CASES = {
     # Sq > Sk + window: rows at positions >= 767 see no key
     "blind_rows": (torch.bfloat16, dict(B=1, Hq=10, Hkv=2, dh=64), 1024, 512,
                    True, 256),
+    # deepseek-v3's MLA at its train_4k microbatch: 128 MHA heads, q/k 192,
+    # v 128, one row of 4096 (phase 13's shape); fp32 at 1024 positions
+    "mla": (torch.bfloat16, dict(B=1, Hq=128, Hkv=128, dh=192, dv=128), 4096,
+            4096, True, 0),
+    "mla_fp32": (torch.float32, dict(B=1, Hq=128, Hkv=128, dh=192, dv=128),
+                 1024, 1024, True, 0),
 }
+# the backward cases timed from the device trace too under --profile
+DEVICE_TIMED_BWD = ("train", "mla")
 
 
-def flash_bwd_kernel_phase(dev, flush):
+def flash_bwd_kernel_phase(dev, flush, profile):
     """B3's backward (the D, dK/dV and dQ kernels) against autograd of the
     plain version at FLASH_BWD_CASES, through ``FlashAttention``: the
     largest gradient error over dq, dk, dv relative to each gradient's
@@ -818,7 +870,8 @@ def flash_bwd_kernel_phase(dev, flush):
     see no key get exactly 0.  Times: the three kernels (CUDA events,
     after the L2 flush), the plain gradient, SDPA's backward
     (``autograd.grad`` of F.scaled_dot_product_attention) on the same
-    tensors, and the bound."""
+    tensors, and the bound; under ``profile`` the DEVICE_TIMED_BWD
+    cases' device times too."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -827,10 +880,11 @@ def flash_bwd_kernel_phase(dev, flush):
         dname = dtype_name(dtype)
         g = torch.Generator(device=dev).manual_seed(5)
         rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+        dv = w.get("dv", w["dh"])
         q, dout = rnd(w["B"], w["Hq"], Sq, w["dh"]), \
-            rnd(w["B"], w["Hq"], Sq, w["dh"])
+            rnd(w["B"], w["Hq"], Sq, dv)
         k, v = rnd(w["B"], w["Hkv"], Sk, w["dh"]), \
-            rnd(w["B"], w["Hkv"], Sk, w["dh"])
+            rnd(w["B"], w["Hkv"], Sk, dv)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         before = dict(ops.LAUNCHES)
         out = ops.flash_attention(*qkv, causal=causal, window=window)
@@ -890,19 +944,27 @@ def flash_bwd_kernel_phase(dev, flush):
             mask = (qp - kp < window) & (qp >= kp)
             so = F.scaled_dot_product_attention(*sq, attn_mask=mask,
                                                 enable_gqa=True)
-        else:
+        else:              # SDPA takes MLA's v width of its own too
             so = F.scaled_dot_product_attention(*sq, is_causal=causal,
                                                 enable_gqa=True)
-        lib = time_ms(lambda: torch.autograd.grad(so, sq, dout,
-                                                  retain_graph=True), 5,
-                      flush)
-        del so, sq
+        sdpa_bwd = lambda: torch.autograd.grad(so, sq, dout,
+                                               retain_graph=True)
+        lib = time_ms(sdpa_bwd, 5, flush)
         max_abs = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(got, want))
         results[name] = report(
             "B3 backward", name, list(q.shape), dname, max_abs, ms, plain,
-            lib, *bound_flash_bwd(q, k, causal, window, dname),
+            lib, *bound_flash_bwd(q, k, v, causal, window, dname),
             tol=f"{TOL[dname]} of each gradient's max |value|")
+        if profile and name in DEVICE_TIMED_BWD:
+            results[name]["device_ms"] = device_ms(call, 10, flush)
+            results[name]["library_device_ms"] = device_ms(sdpa_bwd, 5,
+                                                           flush)
+            log(f"B3 backward {name}: device_ms "
+                f"{results[name]['device_ms']:.4f} (SDPA "
+                f"{results[name]['library_device_ms']:.4f}), from the "
+                f"device trace")
+        del so, sq
         results[name].update(kv_shape=list(k.shape), causal=causal,
                              window=window, errors=errs, floor=floor,
                              fault=fault, rows_without_keys=int(blind.sum()),
@@ -2501,6 +2563,60 @@ def rel_l2(a, b):
                  / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
 
 
+def grad_gate(tag, cfg, params, batch, kernel):
+    """The training phases' gradient gate on one batch: ``kernel`` is the
+    kernel step's (loss, gradients in flatten order); the same step again
+    with plain attention in place of B3 (``plain_train_attention``: the
+    plain re-run, the floor with P rounded to bf16, the fault with a key
+    tile dropped from layer 0's backward), none launching a kernel; each
+    leaf's relative L2 and the loss's against the plain re-run.  Fails
+    unless floor < GRAD_LIMIT < fault and the kernel step is under the
+    limit.  Returns (peak GB, the distances)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    L = cfg.n_layers
+    names = leaf_names(params)
+    kernel_fn = fa_ops.flash_attention
+
+    def rerun(fn):
+        fa_ops.flash_attention = fn
+        before = dict(fa_ops.LAUNCHES)
+        try:
+            res = step_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+        finally:
+            fa_ops.flash_attention = kernel_fn
+        assert fa_ops.LAUNCHES == before, "a kernel ran in a re-run"
+        return res
+
+    loss_p, g_p = rerun(plain_train_attention(L))
+    dist = {}
+    for t, fn in (("kernel", None),
+                  ("floor", plain_train_attention(L, round_p=True)),
+                  ("fault", plain_train_attention(L, drop_layer0=True))):
+        loss, grads = kernel if fn is None else rerun(fn)
+        per_leaf = {n: rel_l2(a, b) for n, a, b in zip(names, grads, g_p)}
+        worst = max(per_leaf, key=per_leaf.get)
+        dist[t] = {"loss": abs(float(loss) - float(loss_p))
+                   / abs(float(loss_p)), "leaves": per_leaf,
+                   "worst_leaf": worst, "worst": per_leaf[worst]}
+        log(f"{tag}: {t} vs plain re-run: loss rel {dist[t]['loss']:.3g}"
+            f", gradient rel L2 worst {per_leaf[worst]:.3g} ({worst}), "
+            + ", ".join(f"{n} {e:.3g}" for n, e in per_leaf.items()))
+        del grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    floor = max(dist["floor"]["worst"], dist["floor"]["loss"])
+    fault = dist["fault"]["worst"]
+    if not (floor < GRAD_LIMIT < fault):
+        raise AssertionError(f"{tag}: floor {floor:.3g} < limit "
+                             f"{GRAD_LIMIT} < fault {fault:.3g} fails")
+    if (dist["kernel"]["worst"] > GRAD_LIMIT
+            or dist["kernel"]["loss"] > GRAD_LIMIT):
+        raise AssertionError(f"{tag}: kernel step vs plain re-run over "
+                             f"the limit: {dist['kernel']['worst']:.3g} "
+                             f"({dist['kernel']['worst_leaf']})")
+    return peak, dist
+
+
 def train_flops(cfg, n_params, tokens, layers_params):
     """Model FLOPs of one remat training step: 6 N per token (forward and
     backward of every weight), 2 N_layers per token again for the remat
@@ -2549,7 +2665,6 @@ def train_phase(dev, profile):
 
     # (1) + (2): the first step against plain re-runs
     params = trainable(init_params(cfg, 0, dev))
-    names = leaf_names(params)
     n_params = sum(p.numel() for p in flatten(params)[0])
     layers_params = sum(p.numel() for p in flatten(params["groups"])[0])
     out["params"] = n_params
@@ -2573,46 +2688,10 @@ def train_phase(dev, profile):
     want = {"flash_attention": 2 * L, **{n: L for n in fa_ops.BWD_KERNELS}}
     if launches != want:
         raise AssertionError(f"train: B3 launches {launches} != {want}")
-    kernel_fn = fa_ops.flash_attention
-    reruns = {}
-    try:
-        for tag, fn in (("plain", plain_train_attention(L)),
-                        ("floor", plain_train_attention(L, round_p=True)),
-                        ("fault", plain_train_attention(L,
-                                                        drop_layer0=True))):
-            fa_ops.flash_attention = fn
-            before = dict(fa_ops.LAUNCHES)
-            reruns[tag] = step_grads(cfg, params, batch)
-            torch.cuda.synchronize()
-            assert fa_ops.LAUNCHES == before, tag   # no kernel in a re-run
-    finally:
-        fa_ops.flash_attention = kernel_fn
-    out["rerun_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    loss_p, g_p = reruns["plain"]
-    dist = {}
-    for tag, (loss, grads) in (("kernel", (loss_k, g_k)),
-                               *((t, reruns[t]) for t in ("floor",
-                                                          "fault"))):
-        per_leaf = {n: rel_l2(a, b) for n, a, b in zip(names, grads, g_p)}
-        worst = max(per_leaf, key=per_leaf.get)
-        dist[tag] = {"loss": abs(float(loss) - float(loss_p))
-                     / abs(float(loss_p)), "leaves": per_leaf,
-                     "worst_leaf": worst, "worst": per_leaf[worst]}
-        log(f"train: {tag} vs plain re-run: loss rel {dist[tag]['loss']:.3g}"
-            f", gradient rel L2 worst {per_leaf[worst]:.3g} ({worst}), "
-            + ", ".join(f"{n} {e:.3g}" for n, e in per_leaf.items()))
+    out["rerun_peak_gb"], dist = grad_gate("train", cfg, params, batch,
+                                           (loss_k, g_k))
     out.update(grad_distance=dist, limit=GRAD_LIMIT)
-    floor = max(dist["floor"]["worst"], dist["floor"]["loss"])
-    fault = dist["fault"]["worst"]
-    if not (floor < GRAD_LIMIT < fault):
-        raise AssertionError(f"train: floor {floor:.3g} < limit "
-                             f"{GRAD_LIMIT} < fault {fault:.3g} fails")
-    if (dist["kernel"]["worst"] > GRAD_LIMIT
-            or dist["kernel"]["loss"] > GRAD_LIMIT):
-        raise AssertionError(f"train: kernel step vs plain re-run over "
-                             f"the limit: {dist['kernel']['worst']:.3g} "
-                             f"({dist['kernel']['worst_leaf']})")
-    del params, g_k, g_p, reruns, batch
+    del params, g_k, batch
     free("the checked step")
 
     # (3): 20 steps; (4): restart from a checkpoint after 5
@@ -2693,7 +2772,6 @@ def train_phase(dev, profile):
 def train_profile(cfg, dcfg):
     """Two traced steps (after one untraced): B3's forward and backward
     kernels' device time per step and their shares of device busy time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.data import SyntheticLM
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.train_loop import train_step, trainable
@@ -2703,33 +2781,48 @@ def train_profile(cfg, dcfg):
     data = SyntheticLM(dcfg)
     batch_at = lambda i: {k: torch.from_numpy(v).to("cuda", torch.int64)
                           for k, v in data.batch_at(i).items()}
-    params, opt, loss, _ = train_step(cfg, params, opt, batch_at(0),
-                                      TRAIN_LR)
-    float(loss)
-    batches = [batch_at(i) for i in (1, 2)]
+    state = {"params": params, "opt": opt}
+
+    def step(batch):
+        state["params"], state["opt"], loss, _ = train_step(
+            cfg, state["params"], state["opt"], batch, TRAIN_LR)
+        return loss
+    float(step(batch_at(0)))
+    return profile_steps("train --profile", step,
+                         [batch_at(i) for i in (1, 2)])
+
+
+def profile_steps(tag, step, batches):
+    """``step(batch)`` for each batch under the profiler (device activity
+    only; ``step`` returns a scalar read at the end): device busy ms per
+    step, B3's forward and backward kernels' device ms and shares of
+    busy, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    n = len(batches)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for b in batches:
-            params, opt, loss, _ = train_step(cfg, params, opt, b, TRAIN_LR)
+            loss = step(b)
         float(loss)
     us = {e.key: e.self_device_time_total for e in prof.key_averages()
           if e.self_device_time_total > 0}
-    busy = sum(us.values()) / 2 / 1e3
+    busy = sum(us.values()) / n / 1e3
     pick = lambda *parts: sum(t for k, t in us.items()
-                              if any(part in k for part in parts)) / 2 / 1e3
+                              if any(part in k for part in parts)) / n / 1e3
     # the backward's passes: the bf16 wgmma kernels or the fp32 ones
     fwd, dkdv, dq, dot = (pick("flash_kernel"),
                           pick("dkdv_wgmma", "dkdv_kernel"),
                           pick("dq_wgmma", "dq_kernel"), pick("dot_kernel"))
     bwd = dkdv + dq + dot
     top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
-    log(f"train --profile: device busy {busy:.1f} ms per step; B3 forward "
+    log(f"{tag}: device busy {busy:.1f} ms per step; B3 forward "
         f"{fwd:.2f} ms ({fwd / busy:.3f} of busy), backward {bwd:.2f} ms "
         f"({bwd / busy:.3f}; dK/dV {dkdv:.2f}, dQ {dq:.2f}, D {dot:.2f}); "
-        f"top kernels: " + "; ".join(f"{k[:60]} {t / 2e3:.2f} ms"
+        f"top kernels: " + "; ".join(f"{k[:60]} {t / n / 1e3:.2f} ms"
                                      for k, t in top))
     return {"busy_ms": busy, "b3_fwd_ms": fwd, "b3_bwd_ms": bwd,
             "dkdv_ms": dkdv, "dq_ms": dq, "dot_ms": dot,
-            "fwd_share": fwd / busy, "bwd_share": bwd / busy}
+            "fwd_share": fwd / busy, "bwd_share": bwd / busy,
+            "top": [(k, t / n / 1e3) for k, t in top]}
 
 
 def small_train_phase(dev):
@@ -2779,6 +2872,371 @@ def small_train_phase(dev):
             raise AssertionError(f"small train ({name}): GPU != CPU")
 
 
+# ------------------------------------------------------- launch steps
+# phase 13: ``launch.steps.build(...).fn`` at the per-device share of the
+# reference's (16, 16) pod mesh.  deepseek-v3 keeps its 3 dense layers
+# (first_dense_layers): one MoE layer at full width holds 11.3e9
+# parameters, and parameters, gradients and moments of one would not fit
+STEPS_DEEPSEEK_LAYERS = 3
+STEPS_TRAIN_STEPS = 3
+STEPS_DECODE_STEPS = 4
+# the prefill's logits gate: plain re-runs of row 0 only, in query chunks
+# of 256 positions (5.4 GB of fp32 scores a chunk)
+STEPS_PREFILL_CHUNK = 256
+
+
+def chunked_plain_flash(round_p=False, drop_tile=False, chunk=256):
+    """B3's plain version with the wrapper's signature, in query chunks
+    (``plain_flash_grads``'s forward; a 32k call's whole score tensor
+    would not fit), and its floor (``round_p``) and fault (``drop_tile``:
+    keys 64-127 dropped from every row's softmax)."""
+    def fn(q, k, v, *, causal=True, window=0, layout="BHSD", **_):
+        if layout == "BSHD":
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        o = plain_flash_grads(q, k, v, None, causal, window, round_p=round_p,
+                              drop_tile=drop_tile, chunk=chunk)[0].to(q.dtype)
+        return o.transpose(1, 2) if layout == "BSHD" else o
+    return fn
+
+
+def steps_launches_want(cfg, n_micro):
+    """B3's launches in one train step: per microbatch each layer's
+    forward twice under remat (the recompute) and each backward kernel
+    once."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    L = cfg.n_layers
+    return {"flash_attention": n_micro * L * (2 if cfg.remat else 1),
+            **{n: n_micro * L for n in fa_ops.BWD_KERNELS}}
+
+
+def steps_train_cell(dev, name, n_layers=0):
+    """``train_4k`` through the train bundle: 16 rows of 4096 in the
+    bundle's microbatches, AdamW moments of ``moment_dtype`` of the
+    published config (the cut is of depth only), weights from
+    ``init_params``, ``SyntheticLM`` batches.  Gates, besides those the
+    caller adds on the first batch: exact B3 launches in every step,
+    finite losses and gradient norms.  Returns (cfg, bundle, params,
+    first batch, the cell's numbers); each step resets the launch counts
+    just before it and reads them just after."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import trainable
+    from repro_torch.training.tree import flatten
+    from repro_torch.weights import init_params
+    published = get_config(name)
+    cfg = (dataclasses.replace(published, n_layers=n_layers) if n_layers
+           else published)
+    shape = SHAPES["train_4k"]
+    bundle = steps.build(cfg, shape, dev)
+    params = trainable(init_params(cfg, 0, dev))
+    n_params = sum(p.numel() for p in flatten(params)[0])
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                  bundle.batch))
+    batch_at = lambda i: {k: torch.from_numpy(v).to(dev)
+                          for k, v in data.batch_at(i).items()}
+    out = dict(arch=name, layers=cfg.n_layers,
+               layers_published=published.n_layers, rows=bundle.batch,
+               seq=shape.seq_len, n_micro=bundle.n_micro, params=n_params,
+               moment_dtype=dtype_name(steps.moment_dtype(published)),
+               desc=bundle.static_desc)
+    log(f"steps: {name} train_4k, {cfg.n_layers} of {published.n_layers} "
+        f"layers, {n_params / 1e9:.3f}e9 params, {bundle.batch} x "
+        f"{shape.seq_len} rows in {bundle.static_desc}, "
+        f"{out['moment_dtype']} moments")
+    return cfg, published, bundle, params, batch_at, out
+
+
+def steps_train_run(dev, cfg, published, bundle, params, batch_at, out,
+                    profile):
+    """``STEPS_TRAIN_STEPS`` steps of the bundle from fresh moments: each
+    step's B3 launches exact, losses and gradient norms finite; ms per
+    step, training tokens/s and peak memory; with ``profile`` one more
+    step traced (``profile_steps``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.tree import flatten
+    tag = f"steps: {out['arch']} train_4k"
+    opt = adamw_init(params, steps.moment_dtype(published))
+    assert all(m.dtype == steps.moment_dtype(published)
+               for m in flatten(opt["m"])[0])
+    want = steps_launches_want(cfg, bundle.n_micro)
+    losses, gnorms, times, launches = [], [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEPS_TRAIN_STEPS):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        for key in fa_ops.LAUNCHES:
+            fa_ops.LAUNCHES[key] = 0         # the step's run starts here
+        t0 = time.perf_counter()
+        params, opt, met = bundle.fn(params, opt, batch)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+        got = dict(fa_ops.LAUNCHES)          # ... and ends here
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
+        if got != want:
+            raise AssertionError(f"{tag}: B3 launches {got} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag}: losses {losses}, norms {gnorms}")
+    tokens = out["rows"] * out["seq"]
+    med = statistics.median(times[1:])
+    out.update(losses=losses, grad_norms=gnorms, step_s=times,
+               step_ms_median=med * 1e3, tokens_per_s=tokens / med,
+               peak_gb=peak, launches=launches, launches_per_step=want)
+    log(f"{tag}: {STEPS_TRAIN_STEPS} steps, losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in gnorms]}; step ms "
+        f"{[round(t * 1e3, 1) for t in times]} (median of the last "
+        f"{len(times) - 1}: {med * 1e3:.1f}), {tokens / med:.0f} training "
+        f"tokens/s, peak {peak:.1f} GB; B3 launches per step {want}")
+    if profile:
+        state = {"params": params, "opt": opt}
+
+        def step(batch):
+            state["params"], state["opt"], met = bundle.fn(
+                state["params"], state["opt"], batch)
+            return met["loss"]
+        out["profile"] = profile_steps(f"{tag} --profile", step,
+                                       [batch_at(STEPS_TRAIN_STEPS)])
+        params, opt = state["params"], state["opt"]
+    return params, opt
+
+
+def steps_qwen_cell(dev, profile):
+    """qwen1.5-0.5b's train_4k at full width and depth: n_micro 2 of 8
+    rows, each phase 11's batch.  Gate: one accumulated gradient
+    (``steps.accumulate_grads``) equals the mean of phase 11's
+    ``train_step`` gradients (``step_grads``) of rows [0, 8) and [8, 16)
+    within fp32 rounding (relative L2 1e-6 per leaf; B3's backward and
+    the step are deterministic), and its loss their mean; the bundle's
+    first step gives that loss again."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.training.tree import flatten
+    cfg, published, bundle, params, batch_at, out = steps_train_cell(
+        dev, "qwen1.5-0.5b")
+    tag = "steps: qwen1.5-0.5b train_4k"
+    batch = batch_at(0)
+    n, mb = bundle.n_micro, bundle.batch // bundle.n_micro
+    for key in fa_ops.LAUNCHES:
+        fa_ops.LAUNCHES[key] = 0
+    acc, loss = steps.accumulate_grads(cfg, params, batch, n)
+    torch.cuda.synchronize()
+    got = dict(fa_ops.LAUNCHES)
+    if got != steps_launches_want(cfg, n):
+        raise AssertionError(f"{tag}: accumulate launches {got}")
+    acc = flatten(acc)[0]
+    per = [step_grads(cfg, params, {k: v[i * mb:(i + 1) * mb]
+                                    for k, v in batch.items()})
+           for i in range(n)]
+    mean_loss = sum(float(l) for l, _ in per) / n
+    worst = 0.0
+    for j, a in enumerate(acc):
+        want = per[0][1][j].float()
+        for _, g in per[1:]:
+            want = want + g[j].float()
+        worst = max(worst, rel_l2(a, want / n))
+    del per, acc
+    loss_err = abs(float(loss) - mean_loss) / abs(mean_loss)
+    out.update(accumulate_vs_steps_rel_l2=worst,
+               accumulate_loss_rel=loss_err)
+    log(f"{tag}: accumulated gradient vs the mean of phase 11's "
+        f"train_step gradients over the {n} microbatches of {mb} rows: "
+        f"worst leaf rel L2 {worst:.3g}, loss {float(loss):.6f} vs "
+        f"{mean_loss:.6f} (limits 1e-6)")
+    if worst > 1e-6 or loss_err > 1e-6:
+        raise AssertionError(f"{tag}: accumulation != phase 11's steps")
+    first = float(loss)
+    params, opt = steps_train_run(dev, cfg, published, bundle, params,
+                                  batch_at, out, profile)
+    if abs(out["losses"][0] - first) > 1e-6 * abs(first):
+        raise AssertionError(f"{tag}: the first step's loss "
+                             f"{out['losses'][0]} != {first}")
+    del params, opt
+    return out
+
+
+def steps_deepseek_cell(dev, profile):
+    """deepseek-v3-671b's train_4k at its published widths and 3 dense
+    layers: n_micro 16 of one row, bf16 moments.  Gate: the first
+    microbatch's gradients (``step_grads`` on row 0) against plain
+    re-runs (``grad_gate``: floor < GRAD_LIMIT < fault); the plain
+    attention runs in query chunks of 512 positions over all 128 heads
+    (1.07 GB of fp32 scores a chunk)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg, published, bundle, params, batch_at, out = steps_train_cell(
+        dev, "deepseek-v3-671b", STEPS_DEEPSEEK_LAYERS)
+    mb = bundle.batch // bundle.n_micro
+    first = {k: v[:mb] for k, v in batch_at(0).items()}
+    for key in fa_ops.LAUNCHES:
+        fa_ops.LAUNCHES[key] = 0
+    kernel = step_grads(cfg, params, first)
+    torch.cuda.synchronize()
+    got = dict(fa_ops.LAUNCHES)
+    if got != steps_launches_want(cfg, 1):
+        raise AssertionError(f"steps: deepseek first microbatch launches "
+                             f"{got}")
+    out["gate_peak_gb"], dist = grad_gate(
+        "steps: deepseek-v3-671b train_4k", cfg, params, first, kernel)
+    out.update(grad_distance=dist, limit=GRAD_LIMIT)
+    del kernel, first
+    free("the checked microbatch")
+    params, opt = steps_train_run(dev, cfg, published, bundle, params,
+                                  batch_at, out, profile)
+    del params, opt
+    return out
+
+
+def steps_prefill_cell(dev, cfg, params):
+    """qwen3-14b's prefill_32k through the prefill bundle: 2 rows of
+    32768 (B3's first 32k shape).  Gates: one B3 launch a layer; finite
+    last-token logits; row 0's logits against chunked plain re-runs of
+    row 0 (floor < LOGITS_LIMIT < fault).  ms and peak memory."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    shape = SHAPES["prefill_32k"]
+    bundle = steps.build(cfg, shape, dev)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (bundle.batch, shape.seq_len),
+        dtype=np.int32)).to(dev)
+    tag = "steps: qwen3-14b prefill_32k"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES["flash_attention"] = 0   # the run starts here
+    t0 = time.perf_counter()
+    logits, cache = bundle.fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fa_ops.LAUNCHES["flash_attention"]   # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    if launches != cfg.n_layers or not torch.isfinite(logits).all():
+        raise AssertionError(f"{tag}: launches {launches}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    kernel_fn = fa_ops.flash_attention
+
+    def rerun(**kw):
+        fa_ops.flash_attention = chunked_plain_flash(
+            chunk=STEPS_PREFILL_CHUNK, **kw)
+        try:
+            return bundle.fn(params, {"tokens": tokens[:1]})[0]
+        finally:
+            fa_ops.flash_attention = kernel_fn
+    t1 = time.perf_counter()
+    ref = rerun()
+    dist = dict(rel_l2=rel_l2(logits[:1], ref),
+                floor_rel_l2=rel_l2(rerun(round_p=True), ref),
+                fault_rel_l2=rel_l2(rerun(drop_tile=True), ref))
+    rerun_s = time.perf_counter() - t1
+    agree = bool(logits[0].argmax() == ref[0].argmax())
+    out = dict(rows=bundle.batch, seq=shape.seq_len, ms=ms, peak_gb=peak,
+               launches={NAMES["B3"]: launches}, argmax_agree=agree,
+               rerun_s=rerun_s, **dist)
+    log(f"{tag}: {bundle.batch} x {shape.seq_len} in {ms:.1f} ms, peak "
+        f"{peak:.1f} GB, B3 launches {launches}; row 0's logits vs the "
+        f"plain re-run rel L2 {dist['rel_l2']:.4f} (floor "
+        f"{dist['floor_rel_l2']:.4f} < {LOGITS_LIMIT} < fault "
+        f"{dist['fault_rel_l2']:.4f}; argmax agrees {agree}; three re-runs "
+        f"of row 0 in {rerun_s:.1f} s)")
+    if not (dist["floor_rel_l2"] < LOGITS_LIMIT < dist["fault_rel_l2"]
+            and dist["rel_l2"] <= LOGITS_LIMIT):
+        raise AssertionError(f"{tag}: logits gate fails: {dist}")
+    return out
+
+
+def steps_decode_cell(dev, cfg, params):
+    """qwen3-14b's decode_32k through the decode bundle: 8 rows against a
+    dense cache of 32768 positions filled with seeded values, each row
+    at position 32768 - 5, one untimed and STEPS_DECODE_STEPS timed
+    steps.  The context is cut (to whole 1024s) only if the cache would
+    not fit beside the weights with 6 GB to spare.  Gates: tokens in the
+    vocabulary, positions advanced.  ms per step (one token a row)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.training.tree import flatten
+    shape = SHAPES["decode_32k"]
+    bundle = steps.build(cfg, shape, dev)
+    rows = bundle.batch
+    per_pos = sum(t.numel() * t.element_size() // t.shape[2] for t in
+                  flatten(T.init_cache(cfg, rows, 1, "meta")["groups"])[0])
+    free_b = torch.cuda.mem_get_info()[0]
+    ctx = min(shape.seq_len, (free_b - 6e9) // per_pos // 1024 * 1024)
+    tag = "steps: qwen3-14b decode_32k"
+    if ctx < shape.seq_len:
+        log(f"{tag}: the cache of {shape.seq_len} positions "
+            f"({per_pos * shape.seq_len / 1e9:.1f} GB) does not fit beside "
+            f"the weights; context cut to {ctx}")
+    cache = T.init_cache(cfg, rows, int(ctx), dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for t in flatten(cache["groups"])[0]:
+        for layer in t:
+            layer.normal_(generator=g)
+    n = STEPS_DECODE_STEPS + 1
+    cache["pos"].fill_(int(ctx) - n)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (rows, 1), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tokens, cache = bundle.fn(params, cache, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok = (bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+          and bool((cache["pos"] == ctx).all()))
+    med = statistics.median(times[1:])
+    out = dict(rows=rows, context=int(ctx), cache_gb=per_pos * ctx / 1e9,
+               step_ms=[t * 1e3 for t in times], ms_per_token=med * 1e3,
+               tokens_per_s=rows / med, peak_gb=peak)
+    log(f"{tag}: {rows} rows at context {ctx} (cache "
+        f"{out['cache_gb']:.1f} GB): ms per step (one token a row) "
+        f"{[round(t * 1e3, 2) for t in times]}, median of the timed "
+        f"{med * 1e3:.2f} ms, {rows / med:.1f} tokens/s, peak "
+        f"{peak:.1f} GB")
+    del cache
+    if not ok:
+        raise AssertionError(f"{tag}: tokens out of range or positions "
+                             f"not advanced")
+    return out
+
+
+def steps_phase(dev, profile):
+    """Phase 13: the launch step functions on the card (see the cells'
+    docstrings; with ``profile`` each train cell traces one more step).
+    Returns the cells' numbers and the B3 launches of the timed steps and
+    the prefill (what the kernels line counts)."""
+    t0 = time.perf_counter()
+    out = {"qwen1.5-0.5b train_4k": steps_qwen_cell(dev, profile)}
+    free("the qwen1.5-0.5b train cell")
+    out["deepseek-v3-671b train_4k"] = steps_deepseek_cell(dev, profile)
+    free("the deepseek-v3 train cell")
+    cfg, params = full_width_params(dev, "qwen3-14b")
+    out["qwen3-14b prefill_32k"] = steps_prefill_cell(dev, cfg, params)
+    free("the prefill cell")
+    out["qwen3-14b decode_32k"] = steps_decode_cell(dev, cfg, params)
+    del params
+    free("qwen3-14b")
+    launches = collections.Counter()
+    for cell in ("qwen1.5-0.5b train_4k", "deepseek-v3-671b train_4k"):
+        launches.update(out[cell]["launches"])
+    launches[NAMES["B3"]] += out["qwen3-14b prefill_32k"]["launches"][
+        NAMES["B3"]]
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"steps: phase 13 in {out['wall_s']:.1f} s; B3 launches "
+        f"{out['launches']}")
+    return out
+
+
 def full_width_params(dev, name, n_layers=0, seed=0):
     """The published config ``name`` (its first ``n_layers`` layers, where
     given) and seeded weights for it on the card."""
@@ -2824,10 +3282,12 @@ def kernel_entry(kid, case, launches):
             "library_ms": case["library_ms"]}
 
 
-def backward_entry(case, launches):
-    """B3's backward in the kernels line: its launches are the backward
-    calls of the train phase (each launches the D, dK/dV and dQ kernels
-    once; ``launches_by_kernel`` gives each)."""
+def backward_entry(case, mla, launches):
+    """B3's backward in the kernels line: its numbers at the train phase's
+    shape (``case``; MLA's (192, 128) instance at deepseek-v3's
+    microbatch under "mla"), its launches the backward calls of the train
+    phase and of phase 13's train steps (each launches the D, dK/dV and
+    dQ kernels once; ``launches_by_kernel`` gives each)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     by_kernel = {n: launches[n] for n in fa_ops.BWD_KERNELS}
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -2840,27 +3300,32 @@ def backward_entry(case, launches):
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "dot_ms": case["dot_ms"], "dkdv_ms": case["dkdv_ms"],
-            "dq_ms": case["dq_ms"]}
+            "dq_ms": case["dq_ms"],
+            "mla": {k: mla[k] for k in (
+                "shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "dot_ms", "dkdv_ms",
+                "dq_ms")}}
 
 
 def wgmma_report(log_text):
-    """Per bf16 backward instance (the wgmma kernels) in ptxas's report:
+    """Per bf16 backward instance (the wgmma kernels, templated on q/k's
+    and v's head dims and the consumer groups) in ptxas's report:
     {kernel: (registers, spill store bytes, spill load bytes, serialised)}."""
     import re
+    pattern = r"(dkdv|dq)_wgmmaILi(\d+)ELi(\d+)ELi(\d+)"
+    key = lambda m: (f"{m.group(1)} dh {m.group(2)} dv {m.group(3)} "
+                     f"({m.group(4)} groups)")
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '\S*?((?:dkdv|dq)_wgmma"
-                      r"ILi(\d+)ELi(\d+))", line)
+        m = re.search(r"Compiling entry function '\S*?" + pattern, line)
         if m:
-            name = f"{m.group(1)[:m.group(1).index('_wgmma')]} dh "\
-                   f"{m.group(2)} ({m.group(3)} groups)"
+            name = key(m)
             out[name] = [0, 0, 0, False]
             continue
         if "C7512" in line:           # wgmma serialised, named in the line
-            m = re.search(r"((?:dkdv|dq))_wgmmaILi(\d+)ELi(\d+)", line)
+            m = re.search(pattern, line)
             if m:
-                key = f"{m.group(1)} dh {m.group(2)} ({m.group(3)} groups)"
-                out.setdefault(key, [0, 0, 0, False])[3] = True
+                out.setdefault(key(m), [0, 0, 0, False])[3] = True
             continue
         if name is None:
             continue
@@ -2942,7 +3407,7 @@ def main(argv=None) -> int:
     b1 = prefill_kernel_phase(dev, flush, args.profile)
     b2 = decode_kernel_phase(dev, flush, args.profile)
     b3 = flash_kernel_phase(dev, flush, args.profile)
-    b3_bwd = flash_bwd_kernel_phase(dev, flush)
+    b3_bwd = flash_bwd_kernel_phase(dev, flush, args.profile)
     del flush
     small_engine_phase(dev)
     small_family_phase(dev)
@@ -3017,15 +3482,21 @@ def main(argv=None) -> int:
     # training at full width, every attention layer through B3 and its
     # backward
     training = train_phase(dev, args.profile)
+    # the launch step functions: train_4k (qwen1.5, deepseek-v3 with MLA's
+    # backward), prefill_32k and decode_32k
+    launch_steps = steps_phase(dev, args.profile)
 
     runs = (fused, split, dense, *plan["runs"].values(), *dbrx.values(),
             *dense_cfgs.values(), *probe.values(), *families.values(),
-            training)
+            training, launch_steps)
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
                                  ("B3", b3["prefill"]))]
-    entries.append(backward_entry(b3_bwd["train"], training["launches"]))
+    entries.append(backward_entry(
+        b3_bwd["train"], b3_bwd["mla"],
+        collections.Counter(training["launches"])
+        + collections.Counter(launch_steps["launches"])))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -3035,7 +3506,7 @@ def main(argv=None) -> int:
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
              "plan": plan,
              "families": families, "b3_backward_cases": b3_bwd,
-             "train": training,
+             "train": training, "steps": launch_steps,
              "profile_attention": tau,
              "split_fused_token_agreement": [same, total],
              "dense_split_token_agreement": [same_dense, total],

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives by inline PTX: mbarriers, TMA tensor and bulk
-// copies, wgmma shared-memory matrix descriptors, the bf16 m64n64k16 and
-// m64n32k16 wgmma with both operands in shared memory, its fence / commit
+// copies, wgmma shared-memory matrix descriptors, the bf16 m64n64k16,
+// m64n32k16 and m64n16k16 wgmma with both operands in shared memory, its fence / commit
 // / wait, the async-proxy fence, named barriers and setmaxnreg; and on the
 // host the tensor-map encoder, reached through the runtime's driver entry
 // point (so the library needs no -lcuda).
@@ -170,6 +170,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint32_t a,
       "%15}, da, db, p, 1, 1, 0, %20;\n"
       "}\n"
       : HOPPER_D16
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint32_t a,
+                                         uint32_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "mov.b64 da, {%8, %10};\n"
+      "mov.b64 db, {%9, %10};\n"
+      "setp.ne.b32 p, %11, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, da, db, p, 1, 1, 0, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
 }
 

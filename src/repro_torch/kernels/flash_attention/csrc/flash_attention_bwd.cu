@@ -34,7 +34,7 @@
 //
 // bf16, what this design does about the bound:
 //  - Every product is wgmma m64n64k16 (m64n32k16 for S^T and dP^T above
-//    dh 64) with fp32 accumulators in registers and both operands in
+//    dh 64, m64n16k16 for S and dP at (192, 128)) with fp32 accumulators in registers and both operands in
 //    shared memory as TMA's 128-byte swizzle leaves them (a 64-column box
 //    per 128-byte row chunk; dh 80 and 96 read a second box whose columns
 //    past dh TMA fills with zeros, so the products run 128 wide there).
@@ -63,8 +63,12 @@
 //    ragged end, rows that see no key; one branch-free pass over P) or
 //    skipped (no visible pair; the group releases the stage its
 //    neighbours need).
-//  - Instances: DQK == DV in {64, 80, 96, 128}; MLA's (192, 128) has
-//    none and the wrapper refuses it.
+//  - Instances: DQK == DV in {64, 80, 96, 128}, and MLA's (DQK 192, DV
+//    128): S^T and S run over DQK's 64-column chunks, dP^T and dP over
+//    DV's; dK and dQ have DQK's chunks, dV DV's.  There dK/dV walks three
+//    times (dK's chunks; dV's two in the first two walks) over a 2-stage
+//    ring, and dQ's consumers take each tile's keys in four quarters of
+//    16 (m64n16k16), so S and dP take 8 + 8 registers beside dQ's 96.
 // fp32 keeps the first design: the same tiles as FMAs on the CUDA cores
 // (never TF32) over folded GQA rows (row j = position * r +
 // head-in-group), 16-byte cp.async loads into a two-stage ring, P and dS
@@ -271,7 +275,10 @@ struct DkdvLayout {
   // per stage and row: lse (log2), D, key lo, key hi
   static constexpr size_t kStat = size_t(kStages) * kNQ * 4 * 4;
   static constexpr size_t kP = size_t(kWarps) * 16 * (kNQ + 4) * 4;
+  // (192, 128): 50,176 + 33,792 + 50,176 + 33,792 + 1,024 + 9,216
+  // = 178,176 bytes
   static constexpr size_t kBytes = kK + kV + kQ + kDO + kStat + kP;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 // Grid (Hkv, B, key tiles of 64).  Warp w owns keys n0 + 16 w .. + 15;
@@ -426,7 +433,9 @@ struct DqLayout {
   static constexpr size_t kK = size_t(kStages) * kN * kS * 4;
   static constexpr size_t kV = size_t(kStages) * kN * kVS * 4;
   static constexpr size_t kP = size_t(kWarps) * 16 * (kN + 4) * 4;
+  // (192, 128): 50,176 + 33,792 + 50,176 + 33,792 + 9,216 = 177,152 bytes
   static constexpr size_t kBytes = kQ + kDO + kK + kV + kP;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 // Grid (Hkv, B, tiles of 64 folded query rows), the last (heaviest under a
@@ -688,41 +697,52 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 
 // ---------------------------------------------------------- dK/dV pass
 // A consumer warpgroup's tile: 64 keys by 64 positions.  The block walks
-// its tiles once for each 64-column chunk c of the head dim, summing dV's
-// and dK's columns of chunk c (S^T and dP^T over the whole head dim each
-// time): above DH 64 both chunks' accumulators would take 128 registers,
-// so a walk holds 64.
-template <int DH, int NWG>
+// its tiles once for each 64-column chunk c of dK and of dV (KW walks,
+// the larger chunk count), summing dK's columns of chunk c while c < KQ
+// and dV's while c < KV (S^T over DQK and dP^T over DV each time): above
+// 64 columns the chunks' accumulators together would take 128 registers
+// or more, so a walk holds 64.
+template <int DQK, int DV, int NWG>
 struct Dkdv {
-  static constexpr int KC = (DH + 63) / 64;          // 64-column chunks
-  // a tile's positions in NH parts of NP: above DH 64 two halves, so
+  static constexpr int KQ = (DQK + 63) / 64;         // chunks of Q, K, dK
+  static constexpr int KV = (DV + 63) / 64;          // of V, dO, dV
+  static constexpr int KW = KQ > KV ? KQ : KV;       // walks
+  // a tile's positions in NH parts of NP: above 64 columns two halves, so
   // S^T and dP^T take 16 + 16 registers (at 32 + 32 the consumers spilled)
-  static constexpr int NH = KC == 1 ? 1 : 2;
+  static constexpr int NH = KQ == 1 ? 1 : 2;
   static constexpr int NP = kTile / NH;
-  static constexpr int ST = KC == 1 ? 4 : 3;         // ring stages
+  // ring stages: at (192, 128) three would take 240,696 B, over the
+  // 232,448 a block can have
+  static constexpr int ST = KQ == 1 ? 4 : KQ + KV <= 4 ? 3 : 2;
   static constexpr int kKeys = NWG * kTile;          // keys a block owns
   static constexpr int kKeyBox = kKeys * kBoxRow;
-  static constexpr int kK = 0;                       // KC key boxes
-  static constexpr int kV = kK + KC * kKeyBox;
-  static constexpr int kQ = kV + KC * kKeyBox;       // ST x KC boxes
-  static constexpr int kDO = kQ + ST * KC * kBoxA;
-  static constexpr int kSt = kDO + ST * KC * kBoxA;  // ST x 64 (lse2, D)
+  static constexpr int kK = 0;                       // KQ key boxes
+  static constexpr int kV = kK + KQ * kKeyBox;       // KV
+  static constexpr int kQ = kV + KV * kKeyBox;       // ST x KQ boxes
+  static constexpr int kDO = kQ + ST * KQ * kBoxA;   // ST x KV
+  static constexpr int kSt = kDO + ST * KV * kBoxA;  // ST x 64 (lse2, D)
   static constexpr int kA = (kSt + ST * kTile * 8 + 1023) / 1024 * 1024;
   static constexpr int kBar = kA + 2 * NWG * kBoxA;  // P^T, dS^T per group
+  // bytes, two groups: (64, 64) 4 stages K 16,384 + V 16,384 + Q 32,768
+  // + dO 32,768 + stats 2,048 + P^T/dS^T 32,768 + barriers and alignment
+  // = 134,216; (128, 128) 3 stages 32,768 + 32,768 + 49,152 + 49,152 +
+  // 1,536 (to 1,024 B) + 32,768 = 199,736 with them; (192, 128) 2 stages
+  // 49,152 + 32,768 + 49,152 + 32,768 + 1,024 + 32,768 = 198,696 with them
   static constexpr int kBytes = kBar + (2 * ST + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 // Grid (key blocks, B * Hkv): a (batch, kv head)'s blocks run together,
 // so its query heads' Q and dO stay in L2, the heaviest (causal: first)
 // block first.
-template <int DH, int NWG>
+template <int DQK, int DV, int NWG>
 __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
     dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo, const WArgs a) {
-  using L = Dkdv<DH, NWG>;
-  constexpr int KC = L::KC, ST = L::ST, NP = L::NP;
+  using L = Dkdv<DQK, DV, NWG>;
+  constexpr int KQ = L::KQ, KV = L::KV, ST = L::ST, NP = L::NP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -752,29 +772,30 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
   if (threadIdx.x < 128) {                     // producer
     regs_dec<Block<NWG>::kProducerRegs>();
     if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * KC * L::kKeyBox);
-      for (int c = 0; c < KC; ++c) {
+      mbar_arrive_expect_tx(kv_full, (KQ + KV) * L::kKeyBox);
+      for (int c = 0; c < KQ; ++c)
         tma_load_4d(sm + L::kK + c * L::kKeyBox, &tk, kv_full, 64 * c, n0,
                     hk, b);
+      for (int c = 0; c < KV; ++c)
         tma_load_4d(sm + L::kV + c * L::kKeyBox, &tv, kv_full, 64 * c, n0,
                     hk, b);
-      }
       int stage = 0;
       uint32_t phase = 0;
-      for (int kc = 0; kc < KC; ++kc)                // one walk a chunk
+      for (int kc = 0; kc < L::KW; ++kc)             // one walk a chunk
         for (int h = hk * a.r; h < (hk + 1) * a.r; ++h) {
           const float2* st =
               a.stats + (static_cast<long long>(b) * a.Hq + h) * a.Sq_pad;
           for (int q0 = qt_lo * kTile; q0 < (qt_lo + per_head) * kTile;
                q0 += kTile) {
             mbar_wait(&empty[stage], phase ^ 1);
-            mbar_arrive_expect_tx(&full[stage], 2 * KC * kBoxA + kTile * 8);
-            for (int c = 0; c < KC; ++c) {
-              tma_load_4d(sm + L::kQ + (stage * KC + c) * kBoxA, &tq,
+            mbar_arrive_expect_tx(&full[stage],
+                                  (KQ + KV) * kBoxA + kTile * 8);
+            for (int c = 0; c < KQ; ++c)
+              tma_load_4d(sm + L::kQ + (stage * KQ + c) * kBoxA, &tq,
                           &full[stage], 64 * c, q0, h, b);
-              tma_load_4d(sm + L::kDO + (stage * KC + c) * kBoxA, &tdo,
+            for (int c = 0; c < KV; ++c)
+              tma_load_4d(sm + L::kDO + (stage * KV + c) * kBoxA, &tdo,
                           &full[stage], 64 * c, q0, h, b);
-            }
             bulk_load(sm + L::kSt + stage * kTile * 8, st + q0, kTile * 8,
                       &full[stage]);
             if (++stage == ST) {
@@ -803,7 +824,7 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
     int stage = 0;
     uint32_t phase = 0;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {       // walk kc: columns 64 kc + 64
+    for (int kc = 0; kc < L::KW; ++kc) {    // walk kc: columns 64 kc + 64
       float dk[32], dv[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
@@ -812,8 +833,8 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
         mbar_wait(&full[stage], phase);
         const int cls = tile_class(a, w, q0, k0);
         if (cls != kSkip) {
-          const uint32_t dqs = d0 + (L::kQ + stage * KC * kBoxA) / 16;
-          const uint32_t dos = d0 + (L::kDO + stage * KC * kBoxA) / 16;
+          const uint32_t dqs = d0 + (L::kQ + stage * KQ * kBoxA) / 16;
+          const uint32_t dos = d0 + (L::kDO + stage * KV * kBoxA) / 16;
           const float4* st =
               reinterpret_cast<const float4*>(sm + L::kSt + stage * kTile * 8);
 #pragma unroll
@@ -823,16 +844,19 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
             float s[NP / 2], dp[NP / 2];
             wgmma_fence();
 #pragma unroll
-            for (int c = 0; c < KC; ++c)
+            for (int c = 0; c < KQ; ++c)
 #pragma unroll
-              for (int kk = 0; kk < 4; ++kk) {
+              for (int kk = 0; kk < 4; ++kk)
                 wgmma_ss<0>(s, dks + (c * L::kKeyBox + 32 * kk) / 16,
                             dqs + (c * kBoxA + p0 * kBoxRow + 32 * kk) / 16,
                             c + kk);
+#pragma unroll
+            for (int c = 0; c < KV; ++c)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
                 wgmma_ss<0>(dp, dvs + (c * L::kKeyBox + 32 * kk) / 16,
                             dos + (c * kBoxA + p0 * kBoxRow + 32 * kk) / 16,
                             c + kk);
-              }
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(s);
@@ -864,16 +888,18 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
             }
             // dV += P^T dO, dK += dS^T Q (chunk kc's columns): P^T and
             // dS^T through shared memory, B MN-major
-            store_a<NP / 8>(pt, s, p0 / 8);
+            if (kc < KV) store_a<NP / 8>(pt, s, p0 / 8);
             store_a<NP / 8>(pt + kBoxA, dp, p0 / 8);
             publish(wg);
             wgmma_fence();
 #pragma unroll
             for (int kk = p0 / 16; kk < (p0 + NP) / 16; ++kk) {
-              wgmma_ss<1>(dv, dpt + 2 * kk,
-                          dos + (kc * kBoxA + 2048 * kk) / 16, 1);
-              wgmma_ss<1>(dk, dpt + kBoxA / 16 + 2 * kk,
-                          dqs + (kc * kBoxA + 2048 * kk) / 16, 1);
+              if (kc < KV)
+                wgmma_ss<1>(dv, dpt + 2 * kk,
+                            dos + (kc * kBoxA + 2048 * kk) / 16, 1);
+              if (kc < KQ)
+                wgmma_ss<1>(dk, dpt + kBoxA / 16 + 2 * kk,
+                            dqs + (kc * kBoxA + 2048 * kk) / 16, 1);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -891,43 +917,58 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
       }
       bf16* dkb = a.dk + b * a.sdk[0] + hk * a.sdk[1];
       bf16* dvb = a.dv + b * a.sdv[0] + hk * a.sdv[1];
-      store_chunk<DH>(dk, kc, key0 < a.Sk ? dkb + key0 * a.sdk[2] : nullptr,
-                      key1 < a.Sk ? dkb + key1 * a.sdk[2] : nullptr,
-                      a.scale);
-      store_chunk<DH>(dv, kc, key0 < a.Sk ? dvb + key0 * a.sdv[2] : nullptr,
-                      key1 < a.Sk ? dvb + key1 * a.sdv[2] : nullptr, 1.f);
+      if (kc < KQ)
+        store_chunk<DQK>(dk, kc,
+                         key0 < a.Sk ? dkb + key0 * a.sdk[2] : nullptr,
+                         key1 < a.Sk ? dkb + key1 * a.sdk[2] : nullptr,
+                         a.scale);
+      if (kc < KV)
+        store_chunk<DV>(dv, kc, key0 < a.Sk ? dvb + key0 * a.sdv[2] : nullptr,
+                        key1 < a.Sk ? dvb + key1 * a.sdv[2] : nullptr, 1.f);
     }
   }
 }
 
 // ------------------------------------------------------------- dQ pass
 // A consumer warpgroup's tile: 64 positions by 64 keys.
-template <int DH, int NWG>
+template <int DQK, int DV, int NWG>
 struct Dq {
-  static constexpr int KC = (DH + 63) / 64;
-  static constexpr int ST = KC == 1 ? 4 : 3;
+  static constexpr int KQ = (DQK + 63) / 64;         // chunks of Q, K, dQ
+  static constexpr int KV = (DV + 63) / 64;          // of V, dO
+  // a tile's keys in NH parts of NK: at three chunks four quarters, so S
+  // and dP take 8 + 8 registers beside dQ's 96 (in halves, 16 + 16, the
+  // consumers spilled 16 bytes)
+  static constexpr int NH = KQ > 2 ? 4 : 1;
+  static constexpr int NK = kTile / NH;
+  static constexpr int ST = KQ == 1 ? 4 : 3;
   static constexpr int kRows = NWG * kTile;          // positions a block owns
   static constexpr int kRowBox = kRows * kBoxRow;
   static constexpr int kKeyBox = kTile * kBoxRow;    // 64 keys
-  static constexpr int kQ = 0;                       // KC boxes
-  static constexpr int kDO = KC * kRowBox;
-  static constexpr int kK = 2 * KC * kRowBox;        // ST x KC boxes
-  static constexpr int kV = kK + ST * KC * kKeyBox;
-  static constexpr int kDS = kV + ST * KC * kKeyBox;   // dS per group
+  static constexpr int kQ = 0;                       // KQ boxes
+  static constexpr int kDO = KQ * kRowBox;           // KV
+  static constexpr int kK = kDO + KV * kRowBox;      // ST x KQ boxes
+  static constexpr int kV = kK + ST * KQ * kKeyBox;  // ST x KV
+  static constexpr int kDS = kV + ST * KV * kKeyBox;   // dS per group
   static constexpr int kBar = kDS + NWG * kBoxA;
+  // bytes: (64, 64) three groups, 4 stages: Q 24,576 + dO 24,576 + K
+  // 32,768 + V 32,768 + dS 24,576 + barriers and alignment = 140,360;
+  // (128, 128) two groups, 3 stages: 32,768 + 32,768 + 49,152 + 49,152 +
+  // 16,384 = 181,304 with them; (192, 128) 49,152 + 32,768 + 73,728 +
+  // 49,152 + 16,384 = 222,264 with them
   static constexpr int kBytes = kBar + (2 * ST + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 // Grid (position blocks, B * Hq): a (batch, head)'s blocks run together,
 // so its K and V stay in L2, the heaviest (causal: last) block first.
-template <int DH, int NWG>
+template <int DQK, int DV, int NWG>
 __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
     dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo, const WArgs a) {
-  using L = Dq<DH, NWG>;
-  constexpr int KC = L::KC, ST = L::ST;
+  using L = Dq<DQK, DV, NWG>;
+  constexpr int KQ = L::KQ, KV = L::KV, ST = L::ST, NK = L::NK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -956,24 +997,24 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
   if (threadIdx.x < 128) {                     // producer
     regs_dec<Block<NWG>::kProducerRegs>();
     if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_arrive_expect_tx(q_full, 2 * KC * L::kRowBox);
-      for (int c = 0; c < KC; ++c) {
+      mbar_arrive_expect_tx(q_full, (KQ + KV) * L::kRowBox);
+      for (int c = 0; c < KQ; ++c)
         tma_load_4d(sm + L::kQ + c * L::kRowBox, &tq, q_full, 64 * c, m0, h,
                     b);
+      for (int c = 0; c < KV; ++c)
         tma_load_4d(sm + L::kDO + c * L::kRowBox, &tdo, q_full, 64 * c, m0,
                     h, b);
-      }
       int stage = 0;
       uint32_t phase = 0;
       for (int k0 = kt_lo * kTile; k0 < kend; k0 += kTile) {
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_arrive_expect_tx(&full[stage], 2 * KC * L::kKeyBox);
-        for (int c = 0; c < KC; ++c) {
-          tma_load_4d(sm + L::kK + (stage * KC + c) * L::kKeyBox, &tk,
+        mbar_arrive_expect_tx(&full[stage], (KQ + KV) * L::kKeyBox);
+        for (int c = 0; c < KQ; ++c)
+          tma_load_4d(sm + L::kK + (stage * KQ + c) * L::kKeyBox, &tk,
                       &full[stage], 64 * c, k0, hk, b);
-          tma_load_4d(sm + L::kV + (stage * KC + c) * L::kKeyBox, &tv,
+        for (int c = 0; c < KV; ++c)
+          tma_load_4d(sm + L::kV + (stage * KV + c) * L::kKeyBox, &tv,
                       &full[stage], 64 * c, k0, hk, b);
-        }
         if (++stage == ST) {
           stage = 0;
           phase ^= 1;
@@ -999,7 +1040,7 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
     const uint32_t ddo = d0 + (L::kDO + wg * kBoxA) / 16;
     unsigned char* dsb = sm + L::kDS + wg * kBoxA;
     const uint32_t dds = d0 + (L::kDS + wg * kBoxA) / 16;
-    float dq[KC][32];
+    float dq[KQ][32];
     zero_acc(dq);
     if (n_tiles > 0) mbar_wait(q_full, 0);
     int stage = 0, held = -1;        // held: the stage dQ's product reads
@@ -1016,56 +1057,66 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
         }
         release(&empty[stage]);
       } else {
-        const uint32_t dks = d0 + (L::kK + stage * KC * L::kKeyBox) / 16;
-        const uint32_t dvs = d0 + (L::kV + stage * KC * L::kKeyBox) / 16;
-        // S = Q K^T, dP = dO V^T (positions x keys), B K-major
-        float s[32], dp[32];
-        wgmma_fence();
+        const uint32_t dks = d0 + (L::kK + stage * KQ * L::kKeyBox) / 16;
+        const uint32_t dvs = d0 + (L::kV + stage * KV * L::kKeyBox) / 16;
+#pragma unroll 1
+        for (int hf = 0; hf < L::NH; ++hf) {   // keys k0 + kp + [0, NK)
+          const int kp = NK * hf;
+          // S = Q K^T, dP = dO V^T (positions x keys), B K-major
+          float s[NK / 2], dp[NK / 2];
+          wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < KC; ++c)
+          for (int c = 0; c < KQ; ++c)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss<0>(s, dqs + (c * L::kRowBox + 32 * kk) / 16,
-                        dks + (c * L::kKeyBox + 32 * kk) / 16, c + kk);
-        wgmma_commit();
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<0>(s, dqs + (c * L::kRowBox + 32 * kk) / 16,
+                          dks + (c * L::kKeyBox + kp * kBoxRow + 32 * kk) /
+                                    16,
+                          c + kk);
+          wgmma_commit();
 #pragma unroll
-        for (int c = 0; c < KC; ++c)
+          for (int c = 0; c < KV; ++c)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss<0>(dp, ddo + (c * L::kRowBox + 32 * kk) / 16,
-                        dvs + (c * L::kKeyBox + 32 * kk) / 16, c + kk);
-        wgmma_commit();
-        // S and the previous tile's dQ are done
-        wgmma_wait<1>();
-        fence_regs(s);
-        if (held >= 0) release(&empty[held]);
-        // P = exp2(S scale_log2 - lse2), zero at the pairs the mask hides
-        // only if the tile holds one
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<0>(dp, ddo + (c * L::kRowBox + 32 * kk) / 16,
+                          dvs + (c * L::kKeyBox + kp * kBoxRow + 32 * kk) /
+                                    16,
+                          c + kk);
+          wgmma_commit();
+          // S and every earlier dQ product are done
+          wgmma_wait<1>();
+          fence_regs(s);
+          if (hf == 0 && held >= 0) release(&empty[held]);
+          // P = exp2(S scale_log2 - lse2), zero at the pairs the mask
+          // hides only if the tile holds one
 #pragma unroll
-        for (int idx = 0; idx < 32; ++idx)
-          s[idx] = ex2(s[idx] * a.scale_log2 - (idx & 2 ? st1.x : st0.x));
-        if (cls == kMasked)
+          for (int idx = 0; idx < NK / 2; ++idx)
+            s[idx] = ex2(s[idx] * a.scale_log2 - (idx & 2 ? st1.x : st0.x));
+          if (cls == kMasked)
 #pragma unroll
-          for (int idx = 0; idx < 32; ++idx)
-            if (!visible(a, w, idx & 2 ? row1 : row0,
-                         k0 + 8 * (idx / 4) + 2 * t + idx % 2))
-              s[idx] = 0.f;
-        wgmma_wait<0>();                       // dP
-        fence_regs(dp);
-        // dS = P (dP - D); dQ += dS K: dS through shared memory, B MN-major
+            for (int idx = 0; idx < NK / 2; ++idx)
+              if (!visible(a, w, idx & 2 ? row1 : row0,
+                           k0 + kp + 8 * (idx / 4) + 2 * t + idx % 2))
+                s[idx] = 0.f;
+          wgmma_wait<0>();                     // dP
+          fence_regs(dp);
+          // dS = P (dP - D); dQ += dS K: dS through shared memory, B
+          // MN-major
 #pragma unroll
-        for (int idx = 0; idx < 32; ++idx)
-          dp[idx] = s[idx] * (dp[idx] - (idx & 2 ? st1.y : st0.y));
-        store_a<8>(dsb, dp, 0);
-        publish(wg);
-        wgmma_fence();
+          for (int idx = 0; idx < NK / 2; ++idx)
+            dp[idx] = s[idx] * (dp[idx] - (idx & 2 ? st1.y : st0.y));
+          store_a<NK / 8>(dsb, dp, kp / 8);
+          publish(wg);
+          wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < KC; ++c)
+          for (int c = 0; c < KQ; ++c)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss<1>(dq[c], dds + 2 * kk,
-                        dks + (c * L::kKeyBox + 2048 * kk) / 16, 1);
-        wgmma_commit();
+            for (int k2 = 0; k2 < NK / 16; ++k2)
+              wgmma_ss<1>(dq[c], dds + 2 * (kp / 16 + k2),
+                          dks + (c * L::kKeyBox + 2048 * (kp / 16 + k2)) / 16,
+                          1);
+          wgmma_commit();
+        }
         held = stage;                // released once dQ's product is done
       }
       if (++stage == ST) {
@@ -1075,11 +1126,11 @@ __global__ void __launch_bounds__(Block<NWG>::kThreads, 1)
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < KC; ++c) fence_regs(dq[c]);
+    for (int c = 0; c < KQ; ++c) fence_regs(dq[c]);
     if (held >= 0) release(&empty[held]);
     bf16* dqb = a.dq + b * a.sdq[0] + h * a.sdq[1];
-    store_acc<DH>(dq, row0 < a.Sq ? dqb + row0 * a.sdq[2] : nullptr,
-                  row1 < a.Sq ? dqb + row1 * a.sdq[2] : nullptr, a.scale);
+    store_acc<DQK>(dq, row0 < a.Sq ? dqb + row0 * a.sdq[2] : nullptr,
+                   row1 < a.Sq ? dqb + row1 * a.sdq[2] : nullptr, a.scale);
   }
 }
 
@@ -1119,14 +1170,14 @@ cudaError_t launch_fp32(int pass, const Args& a, int B, int Hkv,
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_bf16(int pass, const void* q, const void* k,
                         const void* v, const void* dout, const WArgs& a,
                         const long long* strides, int B,
                         cudaStream_t stream) {
-  using P = Plan<(DH + 63) / 64>;
-  using LK = Dkdv<DH, P::kDkdvGroups>;
-  using LQ = Dq<DH, P::kDqGroups>;
+  using P = Plan<(DQK + 63) / 64>;
+  using LK = Dkdv<DQK, DV, P::kDkdvGroups>;
+  using LQ = Dq<DQK, DV, P::kDqGroups>;
   using BK = Block<P::kDkdvGroups>;
   using BQ = Block<P::kDqGroups>;
   // boxes: dK/dV reads a block's keys and 64 positions, dQ a block's
@@ -1134,22 +1185,22 @@ cudaError_t launch_bf16(int pass, const void* q, const void* k,
   const int q_rows = pass == 0 ? kTile : LQ::kRows;
   const int k_rows = pass == 0 ? LK::kKeys : kTile;
   CUtensorMap mq, mk, mv, mdo;
-  if (!bf16_map(&mq, q, B, a.Hq, a.Sq, DH, strides, q_rows) ||
-      !bf16_map(&mk, k, B, a.Hkv, a.Sk, DH, strides + 3, k_rows) ||
-      !bf16_map(&mv, v, B, a.Hkv, a.Sk, DH, strides + 6, k_rows) ||
-      !bf16_map(&mdo, dout, B, a.Hq, a.Sq, DH, strides + 9, q_rows))
+  if (!bf16_map(&mq, q, B, a.Hq, a.Sq, DQK, strides, q_rows) ||
+      !bf16_map(&mk, k, B, a.Hkv, a.Sk, DQK, strides + 3, k_rows) ||
+      !bf16_map(&mv, v, B, a.Hkv, a.Sk, DV, strides + 6, k_rows) ||
+      !bf16_map(&mdo, dout, B, a.Hq, a.Sq, DV, strides + 9, q_rows))
     return cudaErrorInvalidValue;
   if (static_cast<long long>(B) * a.Hq > 65535) return cudaErrorInvalidValue;
   if (pass == 0) {
     static bool configured = false;
-    auto kernel = dkdv_wgmma<DH, P::kDkdvGroups>;
+    auto kernel = dkdv_wgmma<DQK, DV, P::kDkdvGroups>;
     cudaError_t err = allow_smem(kernel, LK::kBytes, configured);
     if (err != cudaSuccess) return err;
     kernel<<<dim3((a.Sk + LK::kKeys - 1) / LK::kKeys, B * a.Hkv),
              BK::kThreads, LK::kBytes, stream>>>(mq, mk, mv, mdo, a);
   } else {
     static bool configured = false;
-    auto kernel = dq_wgmma<DH, P::kDqGroups>;
+    auto kernel = dq_wgmma<DQK, DV, P::kDqGroups>;
     cudaError_t err = allow_smem(kernel, LQ::kBytes, configured);
     if (err != cudaSuccess) return err;
     kernel<<<dim3((a.Sq + LQ::kRows - 1) / LQ::kRows, B * a.Hq),
@@ -1167,7 +1218,12 @@ int run_pass(int pass, const void* q, const void* k, const void* v,
              int Sq, int Sk, int dh, int dvw, int causal, int window,
              float scale, int dtype, void* stream) {
   if (B == 0 || Hq == 0 || Sq == 0 || Sk == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || dh != dvw ||
+  // the built (dh, dv) pairs: dh == dv in {64, 80, 96, 128}, MLA's
+  // (192, 128)
+  const bool built = dh == dvw ? dh == 64 || dh == 80 || dh == 96 ||
+                                     dh == 128
+                               : dh == 192 && dvw == 128;
+  if (!built || Hkv <= 0 || Hq % Hkv != 0 ||
       static_cast<long long>(Sq) * (Hq / Hkv) > (1LL << 30))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1194,15 +1250,15 @@ int run_pass(int pass, const void* q, const void* k, const void* v,
     a.scale_log2 = scale * kLog2e;
     switch (dh) {
       case 64:
-        return launch_bf16<64>(pass, q, k, v, dout, a, strides, B, s);
+        return launch_bf16<64, 64>(pass, q, k, v, dout, a, strides, B, s);
       case 80:
-        return launch_bf16<80>(pass, q, k, v, dout, a, strides, B, s);
+        return launch_bf16<80, 80>(pass, q, k, v, dout, a, strides, B, s);
       case 96:
-        return launch_bf16<96>(pass, q, k, v, dout, a, strides, B, s);
+        return launch_bf16<96, 96>(pass, q, k, v, dout, a, strides, B, s);
       case 128:
-        return launch_bf16<128>(pass, q, k, v, dout, a, strides, B, s);
+        return launch_bf16<128, 128>(pass, q, k, v, dout, a, strides, B, s);
       default:
-        return cudaErrorInvalidValue;
+        return launch_bf16<192, 128>(pass, q, k, v, dout, a, strides, B, s);
     }
   }
   if (dtype != 0) return cudaErrorInvalidValue;
@@ -1244,7 +1300,7 @@ int run_pass(int pass, const void* q, const void* k, const void* v,
     case 128:
       return launch_fp32<128, 128>(pass, a, B, Hkv, s);
     default:
-      return cudaErrorInvalidValue;
+      return launch_fp32<192, 128>(pass, a, B, Hkv, s);
   }
 }
 

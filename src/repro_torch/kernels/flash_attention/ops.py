@@ -31,9 +31,9 @@ SOURCES = (("flash_attention", CSRC / "flash_attention.cu"),
 # (q/k head dim, v head dim) pairs the kernel is built for: the served
 # configs' widths, MLA's (192, 128) among them
 HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
-# the pairs the backward is built for: every config's training attention
-# but MLA's
-BWD_HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128))
+# the pairs the backward is built for: every config's training attention,
+# MLA's (192, 128) among them
+BWD_HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
 FOLDED_ROWS = 64               # (position, query head) rows per block
 STATS_PAD = 64                 # the backward's statistics: rows per pad
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -188,8 +188,7 @@ def _no_backward(dh: int, dv: int) -> None:
     if (dh, dv) not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash attention backward at head dims (q/k {dh}, v {dv}) is "
-            f"not built (ROADMAP Queue A item 8: MLA's (192, 128) "
-            f"backward); it takes {BWD_HEAD_DIMS}")
+            f"not built; it takes {BWD_HEAD_DIMS}")
 
 
 def _backward_passes(q, k, v, out, lse, dout, causal, window, layout):

@@ -196,10 +196,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Seeded parameters of every layer kind and frontend, initialised as
     the reference initialises them: truncated-normal fan-in weights,
     embeddings (and learned positions) N(0, 1) * 0.02, unit norm scales,
-    zero biases, and the SSM's and xLSTM's own constants."""
+    zero biases, and the SSM's and xLSTM's own constants.  On the
+    ``meta`` device the tree has its shapes and dtypes and no values (the
+    abstract inputs of ``launch.steps``)."""
     dev = resolve(device)
     dt = cdtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     d = cfg.d_model
     groups = []
     for kind, L, _win in layer_groups(cfg):

@@ -17,7 +17,8 @@ owns 128 keys of one (batch, kv head), a consumer group 64 of them, and
 walks for each of the r query heads the 64-position tiles that see one of
 the block's keys (above dh 64 once per 64-column chunk: the same sums); a
 dQ block owns 64 positions per consumer group (three groups at dh 64, two
-above) of one query head and walks the 64-key tiles they see.  Every tile
+above) of one query head and walks the 64-key tiles they see, at MLA's
+q/k 192 (v 128) in four parts of 16 keys.  Every tile
 a group meets is classed from its positions and keys as the kernels class
 it -- interior (every pair visible: no mask), masked, or skipped (no
 visible pair) -- and the class is checked against the mask pair by pair;
@@ -86,6 +87,11 @@ def plain_lse(q, k, causal, window):
 def dq_groups(dh):
     """bf16 dQ: consumer groups a block."""
     return 3 if dh <= 64 else 2
+
+
+def dq_part(dh):
+    """bf16 dQ: keys of a tile per product (quarters at q/k 192)."""
+    return 16 if dh > 128 else GROUP
 
 
 def band(causal, window):
@@ -233,7 +239,9 @@ def emulate_bf16_design(q, k, v, out, lse, dout, *, causal, window,
                         if got is None:
                             continue
                         _, ds, _, _, Kt = got
-                        acc += rnd(ds) @ Kt
+                        n = dq_part(dh)
+                        for c0 in range(0, GROUP, n):
+                            acc += rnd(ds[:, c0:c0 + n]) @ Kt[c0:c0 + n]
                     pos = torch.arange(p0, p0 + GROUP)
                     live = pos < Sq
                     dq[b, h, pos[live]] = acc[live] * scale
@@ -361,7 +369,8 @@ def plain_grads(q, k, v, dout, causal, window):
 # the diagonal and one key behind it (window 2) at dh 128 (two walks), a
 # window edge that no tile boundary meets (window 200), GQA r = 5 over
 # several key and position blocks (the folded rows' diagonal fell
-# mid-tile)
+# mid-tile); MLA's q/k 192 and v 128 (its own v width: V_DIMS) over
+# several key blocks
 CASES = {
     "mha_dh64": (1, 2, 2, 200, 200, 64, True, 0),
     "gqa_r5": (1, 10, 2, 70, 70, 64, True, 0),
@@ -373,16 +382,24 @@ CASES = {
     "diag_band": (1, 2, 2, 200, 200, 128, True, 2),
     "window_edge": (1, 2, 1, 330, 330, 64, True, 200),
     "gqa_r5_blocks": (1, 5, 1, 300, 300, 64, True, 0),
+    "mla_192_128": (1, 4, 4, 260, 260, 192, True, 0),
 }
+V_DIMS = {"mla_192_128": 128}
+
+
+def case_inputs(name, dtype, seed):
+    """q, k, v, dout of case ``name`` (v and dout at its v width)."""
+    B, Hq, Hkv, Sq, Sk, dh, _causal, _window = CASES[name]
+    dv = V_DIMS.get(name, dh)
+    return inputs([(B, Hq, Sq, dh), (B, Hkv, Sk, dh), (B, Hkv, Sk, dv),
+                   (B, Hq, Sq, dv)], dtype, seed)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_backward_emulation_matches_plain_autograd(name, dtype):
-    B, Hq, Hkv, Sq, Sk, dh, causal, window = CASES[name]
-    q, k, v, dout = inputs([(B, Hq, Sq, dh), (B, Hkv, Sk, dh),
-                            (B, Hkv, Sk, dh), (B, Hq, Sq, dh)], dtype,
-                           sorted(CASES).index(name))
+    causal, window = CASES[name][6:]
+    q, k, v, dout = case_inputs(name, dtype, sorted(CASES).index(name))
     out, want = plain_grads(q, k, v, dout, causal, window)
     lse = plain_lse(q, k, causal, window)
     blind = torch.isinf(lse)
@@ -405,6 +422,7 @@ CLASSES_MET = {
     "gqa_r5_blocks": {SKIP, MASKED, INTERIOR},
     "noncausal_dh80": {SKIP, MASKED, INTERIOR},   # groups past the end
     "blind_rows": {SKIP, MASKED},
+    "mla_192_128": {SKIP, MASKED, INTERIOR},
 }
 
 
@@ -414,10 +432,9 @@ def test_bf16_design_meets_every_tile_class(name):
     checked against its pairs inside the emulation): a band of the
     diagonal leaves no interior tile, a causal diagonal from tile
     corner to corner one masked tile a row of tiles."""
-    B, Hq, Hkv, Sq, Sk, dh, causal, window = CASES[name]
-    q, k, v, dout = inputs([(B, Hq, Sq, dh), (B, Hkv, Sk, dh),
-                            (B, Hkv, Sk, dh), (B, Hq, Sq, dh)],
-                           torch.bfloat16, 11)
+    Sq, Sk = CASES[name][3:5]
+    causal, window = CASES[name][6:]
+    q, k, v, dout = case_inputs(name, torch.bfloat16, 11)
     out, _ = plain_grads(q, k, v, dout, causal, window)
     met = {}
     emulate_bf16_design(q, k, v, out.to(torch.bfloat16),

@@ -575,17 +575,52 @@ def test_flash_with_grad_never_returns_an_output_without_grad_fn(cuda):
             q.requires_grad_(), k, v).grad_fn is None
 
 
-def test_flash_backward_refuses_mla_widths(cuda):
-    """(192, 128) has no backward kernel: a gradient request raises before
-    anything runs, and never falls back to the plain version."""
-    q, k, v = make_flash(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 192)
-    v = v[..., :128].contiguous()
+# (B, Hq, Hkv, Sq, Sk, causal, window) at MLA's widths, q/k 192 and v 128:
+# causal MHA over several key blocks (dK/dV's three walks, dQ's key
+# halves), GQA non-causal at S not a tile multiple, a window edge inside
+# tiles
+FLASH_BWD_MLA_SHAPES = [
+    (1, 4, 4, 300, 300, True, 0),
+    (2, 6, 2, 130, 130, False, 0),
+    (1, 2, 2, 260, 260, True, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", range(len(FLASH_BWD_MLA_SHAPES)))
+def test_flash_backward_at_mla_widths_matches_plain(cuda, shape, dtype):
+    """(192, 128): dq, dk, dv through ``FlashAttention`` (one launch of
+    each backward kernel) against autograd of the plain version, fp32 2e-5
+    and bf16 2e-2 of each gradient's largest magnitude (bf16 against the
+    plain version in fp32)."""
+    B, Hq, Hkv, Sq, Sk, causal, window = FLASH_BWD_MLA_SHAPES[shape]
+    q, k, _ = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, 192, seed=shape)
+    _, _, v = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, 128, seed=shape)
+    dout = make_flash(cuda, dtype, B, Hq, Hkv, Sq, Sk, 128, seed=99)[0]
     before = dict(fa_ops.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*qkv, causal=causal, window=window)
+    assert out.shape == (B, Hq, Sq, 128) and out.grad_fn is not None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert {n: fa_ops.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, **{n: 1 for n in fa_ops.BWD_KERNELS}}
+    want = plain_grads(*(t.float() for t in (q, k, v, dout)), causal,
+                       window)
+    for t, w in zip(qkv, want):
+        err = float((t.grad.float() - w).abs().max() / w.abs().max())
+        assert torch.isfinite(t.grad).all() and err <= TOL[dtype], err
+
+
+def test_flash_backward_refuses_unbuilt_widths(cuda):
+    """A pair without a backward instance, (256, 256): a gradient request
+    raises before anything runs, and never falls back to the plain
+    version."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 256)
+    before = dict(fa_ops.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="not built"):
         fa_ops.flash_attention(q.requires_grad_(), k, v)
     assert fa_ops.LAUNCHES == before
-    with torch.no_grad():                    # inference still runs
-        assert fa_ops.flash_attention(q, k, v).shape == (1, 2, 64, 128)
 
 
 # ----------------------------------------------------------- MoE FFN
@@ -785,6 +820,37 @@ def test_reduced_training_on_the_card_matches_the_cpu(cuda, name):
                   params=params) for dev in ("cpu", "cuda")]
     assert fa_ops.LAUNCHES["flash_attention_bwd_dq"] - before \
         == 5 * cfg.n_layers
+    for a, b in zip(runs[1]["losses"], runs[0]["losses"]):
+        assert abs(a - b) <= 1e-5
+    a = torch.cat([p.detach().cpu().reshape(-1)
+                   for p in flatten(runs[1]["params"])[0]])
+    b = torch.cat([p.detach().reshape(-1)
+                   for p in flatten(runs[0]["params"])[0]])
+    assert torch.linalg.vector_norm(a - b) \
+        <= 1e-5 * torch.linalg.vector_norm(b)
+
+
+def test_reduced_deepseek_trains_on_the_card_like_the_cpu(cuda):
+    """Three steps of reduced fp32 deepseek-v3 at MLA's head dims
+    (``FAMILY_GPU``: q/k 192, v 128), every attention layer through B3 and
+    its (192, 128) backward on the card, against the CPU from the same
+    weights: losses within 1e-5, the parameters within 1e-5 relative L2
+    over all leaves."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.training.tree import flatten
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                              **FAMILY_GPU["deepseek-v3-671b"])
+    params = init_params(cfg, 0, device="cpu")
+    dcfg = DataConfig(cfg.vocab_size, seq_len=80, global_batch=4)
+    before = dict(fa_ops.LAUNCHES)
+    runs = [train(cfg, dcfg, TrainConfig(steps=3, lr=1e-3, device=dev),
+                  params=params) for dev in ("cpu", "cuda")]
+    assert {n: fa_ops.LAUNCHES[n] - before[n] for n in fa_ops.BWD_KERNELS} \
+        == {n: 3 * cfg.n_layers for n in fa_ops.BWD_KERNELS}
     for a, b in zip(runs[1]["losses"], runs[0]["losses"]):
         assert abs(a - b) <= 1e-5
     a = torch.cat([p.detach().cpu().reshape(-1)
