@@ -10,9 +10,9 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
   2. build:   the four kernel sources compiled from
               src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/
               (B1, B2, B3 and B3's backward), one nvcc process per source,
-              all started together; each bf16 backward instance's registers,
-              spills and any wgmma serialisation from ptxas's report, and a
-              failure if one of them spills.
+              all started together; each bf16 forward and backward
+              instance's registers, spills and any wgmma serialisation from
+              ptxas's report, and a failure if one of them spills.
   3. kernels: each kernel against its plain PyTorch version, timed with
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
@@ -31,11 +31,15 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               deepseek-v3's MLA (128 MHA heads, q/k 192, v 128, S 1024,
               causal), hubert's dh 80 (16 MHA heads, S 1600, non-causal)
               and hymba's window (25 over 5 heads, dh 64, window 1024, S
-              2048); beside F.scaled_dot_product_attention.  Every case also
+              2048); qwen1.5-0.5b's training forward (8 x 16 MHA heads, dh
+              64, S 4096) and MLA at deepseek-v3's train_4k microbatch (S
+              4096), checked against the plain version a few heads at a
+              time; beside F.scaled_dot_product_attention.  Every case also
               reads the wrapper's host time per call; with --profile the
               kernel table's cases (B1 mixed and decode-only, B2 decode, B3
-              prefill) and B3 at S 128 also read kernel and SDPA time from
-              the profiler's device trace, which holds no host time.  B3's
+              prefill), B3 at S 128, MLA (S 1024 and 4096) and the training
+              forward also read kernel and SDPA time from the profiler's
+              device trace, which holds no host time.  B3's
               backward (the D, dK/dV and dQ kernels, through
               FlashAttention) against autograd of the plain version at
               qwen1.5-0.5b's training shape (8 x 16 heads, dh 64, S 4096,
@@ -332,12 +336,13 @@ def report(kernel, name, shape, dname, max_err, ms, plain, lib, b_ms, b_by,
 
 
 # the cases whose kernel and SDPA times are also read from the device
-# trace (``device_ms``) under --profile: the kernel table's rows and B3 at
-# S = 128.  Only then: once the profiler has run in a process, every later
+# trace (``device_ms``) under --profile: the kernel table's rows, B3 at
+# S = 128 and at MLA's and training's shapes.  Only then: once the profiler has run in a process, every later
 # launch costs more host time (a plain run's tokens/s fell 10-20 % in
 # PERF.md's runs), so a plain run keeps its end-to-end numbers clean.
 DEVICE_TIMED = {"B1": ("mixed", "decode"), "B2": ("decode",),
-                "B3": ("prefill", "prefill_128")}
+                "B3": ("prefill", "prefill_128", "mla", "train_fwd",
+                       "mla_4k")}
 
 
 def log_device_ms(kernel, name, result, fn, sdpa, flush):
@@ -650,9 +655,26 @@ FAMILY_FLASH = {
 }
 
 
+def plain_parts(q, k, v, causal, window, max_scores=1 << 28):
+    """The plain version (``flash_attention_ref``) one batch row and as
+    many kv heads (with their query heads) at a time as keep a score
+    tensor within ``max_scores`` elements (1 GB of fp32): yields (batch
+    row, query-head slice, the slice's plain output)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, Hq, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    r = Hq // Hkv
+    hk = max(1, min(Hkv, max_scores // (r * Sq * Sk)))
+    for b in range(B):
+        for h0 in range(0, Hkv, hk):
+            h1 = min(h0 + hk, Hkv)
+            yield b, slice(h0 * r, h1 * r), flash_attention_ref(
+                q[b:b + 1, h0 * r:h1 * r], k[b:b + 1, h0:h1],
+                v[b:b + 1, h0:h1], causal=causal, window=window)
+
+
 def flash_kernel_phase(dev, flush, profile):
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     qwen = dict(Hq=40, Hkv=8, dh=128)
     cases = {
         # qwen3-14b's dense prefill of a 1024-token prompt
@@ -668,6 +690,13 @@ def flash_kernel_phase(dev, flush, profile):
                      0),
         "mha_dh96": (torch.bfloat16, dict(Hq=32, Hkv=32, dh=96), 1024, True,
                      0),
+        # qwen1.5-0.5b's training forward (phase 11): 8 rows x 16 MHA
+        # heads, dh 64, S 4096
+        "train_fwd": (torch.bfloat16, dict(B=8, Hq=16, Hkv=16, dh=64), 4096,
+                      True, 0),
+        # deepseek-v3's MLA at its train_4k microbatch: 128 heads, S 4096
+        "mla_4k": (torch.bfloat16, dict(Hq=128, Hkv=128, dh=192, dv=128),
+                   4096, True, 0),
     }
     # the families' shapes, each in both types
     for name, (w, S, causal, window) in FAMILY_FLASH.items():
@@ -679,18 +708,22 @@ def flash_kernel_phase(dev, flush, profile):
         dv = w.get("dv", w["dh"])
         g = torch.Generator(device=dev).manual_seed(3)
         rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
-        q = rnd(1, w["Hq"], S, w["dh"])
-        k, v = rnd(1, w["Hkv"], S, w["dh"]), rnd(1, w["Hkv"], S, dv)
+        B = w.get("B", 1)
+        q = rnd(B, w["Hq"], S, w["dh"])
+        k, v = rnd(B, w["Hkv"], S, w["dh"]), rnd(B, w["Hkv"], S, dv)
         call = lambda: ops.flash_attention(q, k, v, causal=causal,
                                            window=window)
         got = call()
         torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
-        blind = (ref == 0).all(-1)            # rows that see no key: none
-        max_err = check_kernel(name, got, ref, blind, dname)
+        max_err = 0.
+        for b, heads, ref in plain_parts(q, k, v, causal, window):
+            blind = (ref == 0).all(-1)        # rows that see no key: none
+            max_err = max(max_err, check_kernel(
+                name, got[b:b + 1, heads], ref, blind, dname))
+            del ref
         ms = time_ms(call, 20, flush)
-        plain = time_ms(lambda: flash_attention_ref(
-            q, k, v, causal=causal, window=window), 3, flush)
+        plain = time_ms(lambda: [None for _ in plain_parts(
+            q, k, v, causal, window)], 3, flush)
         sdpa = sdpa_flash_call(q, k, v, causal, window)
         lib = time_ms(sdpa, 10, flush)
         results[name] = report(
@@ -703,7 +736,7 @@ def flash_kernel_phase(dev, flush, profile):
         log(f"B3 {name}: wrapper host_ms {host:.4f} per call")
         if profile and name in DEVICE_TIMED["B3"]:
             log_device_ms("B3", name, results[name], call, sdpa, flush)
-        del q, k, v, got, ref
+        del q, k, v, got
         torch.cuda.empty_cache()
     return results
 
@@ -2087,7 +2120,9 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
     n_ops = sum(e.count for e in avg if e.self_device_time_total > 0)
     b1_us = sum(us for k, us in events if "paged_prefill_" in k)
     b2_us = sum(us for k, us in events if "paged_decode_" in k)
-    b3_us = sum(us for k, us in events if "flash_kernel" in k)
+    # B3's forward: the bf16 wgmma kernel or the fp32 tile
+    b3_us = sum(us for k, us in events
+                if "fwd_wgmma" in k or "flash_kernel" in k)
     log(f"profile ({mode}): steps {win_step0 + 1}-{steps} ({n_win} steps), "
         f"device busy (kernels and copies) {dev_us / 1e3:.1f} ms of "
         f"{win_wall * 1e3:.1f} ms wall of the same steps: busy share "
@@ -2808,8 +2843,9 @@ def profile_steps(tag, step, batches):
     busy = sum(us.values()) / n / 1e3
     pick = lambda *parts: sum(t for k, t in us.items()
                               if any(part in k for part in parts)) / n / 1e3
-    # the backward's passes: the bf16 wgmma kernels or the fp32 ones
-    fwd, dkdv, dq, dot = (pick("flash_kernel"),
+    # B3's forward and the backward's passes: the bf16 wgmma kernels or
+    # the fp32 ones
+    fwd, dkdv, dq, dot = (pick("fwd_wgmma", "flash_kernel"),
                           pick("dkdv_wgmma", "dkdv_kernel"),
                           pick("dq_wgmma", "dq_kernel"), pick("dot_kernel"))
     bwd = dkdv + dq + dot
@@ -3308,11 +3344,12 @@ def backward_entry(case, mla, launches):
 
 
 def wgmma_report(log_text):
-    """Per bf16 backward instance (the wgmma kernels, templated on q/k's
-    and v's head dims and the consumer groups) in ptxas's report:
-    {kernel: (registers, spill store bytes, spill load bytes, serialised)}."""
+    """Per bf16 instance of B3's forward and backward (the wgmma kernels,
+    templated on q/k's and v's head dims and the consumer groups) in
+    ptxas's report: {kernel: (registers, spill store bytes, spill load
+    bytes, serialised)}."""
     import re
-    pattern = r"(dkdv|dq)_wgmmaILi(\d+)ELi(\d+)ELi(\d+)"
+    pattern = r"(fwd|dkdv|dq)_wgmmaILi(\d+)ELi(\d+)ELi(\d+)"
     key = lambda m: (f"{m.group(1)} dh {m.group(2)} dv {m.group(3)} "
                      f"({m.group(4)} groups)")
     out, name = {}, None
@@ -3322,7 +3359,7 @@ def wgmma_report(log_text):
             name = key(m)
             out[name] = [0, 0, 0, False]
             continue
-        if "C7512" in line:           # wgmma serialised, named in the line
+        if re.search(r"C75\d\d.*serialized", line):  # wgmma serialised
             m = re.search(pattern, line)
             if m:
                 out.setdefault(key(m), [0, 0, 0, False])[3] = True
@@ -3383,25 +3420,28 @@ def main(argv=None) -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
-    report = wgmma_report(build.BUILD_LOG.get("flash_attention_bwd", ""))
+    report = wgmma_report(build.BUILD_LOG.get("flash_attention", "")
+                          + build.BUILD_LOG.get("flash_attention_bwd", ""))
     for kname, (regs, st, ld, serial) in sorted(report.items()):
-        log(f"build: B3 backward bf16 {kname}: {regs} registers, spill "
+        log(f"build: B3 bf16 {kname}: {regs} registers, spill "
             f"stores {st} B, loads {ld} B, wgmma "
             f"{'serialised' if serial else 'pipelined'}")
-    assert len(report) == 2 * len(fa_ops.BWD_HEAD_DIMS), report
+    assert len(report) == (len(fa_ops.HEAD_DIMS)
+                           + 2 * len(fa_ops.BWD_HEAD_DIMS)), report
     spilled = {k: v for k, v in report.items() if v[1] or v[2]}
     if spilled:
-        raise AssertionError(f"bf16 backward instances spill: {spilled}")
+        raise AssertionError(f"bf16 forward or backward instances spill: "
+                             f"{spilled}")
     for kid, warps in (("B1", (1, 4)), ("B2", (1,))):
         log(f"build: {NAMES[kid]}: dynamic shared memory per block " +
             ", ".join(f"{dt} dh {dh} {w} warp(s) "
                       f"{tile_smem_bytes(size, dh, w)} B"
                       for dt, size in (("fp32", 4), ("bf16", 2))
                       for dh in ops.HEAD_DIMS for w in warps))
-    log(f"build: {NAMES['B3']}: dynamic shared memory per block (4 warps) " +
-        ", ".join(f"{dt} dh {dh} dv {dv} {tile_smem_bytes(size, dh, 4, dv)} B"
-                  for dt, size in (("fp32", 4), ("bf16", 2))
-                  for dh, dv in fa_ops.HEAD_DIMS))
+    log(f"build: {NAMES['B3']}: fp32 dynamic shared memory per block (4 "
+        f"warps) " + ", ".join(f"dh {dh} dv {dv} "
+                               f"{tile_smem_bytes(4, dh, 4, dv)} B"
+                               for dh, dv in fa_ops.HEAD_DIMS))
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     b1 = prefill_kernel_phase(dev, flush, args.profile)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives by inline PTX: mbarriers, TMA tensor and bulk
-// copies, wgmma shared-memory matrix descriptors, the bf16 m64n64k16,
-// m64n32k16 and m64n16k16 wgmma with both operands in shared memory, its fence / commit
+// copies, wgmma shared-memory matrix descriptors, the bf16 m64n128k16,
+// m64n64k16, m64n32k16 and m64n16k16 wgmma with both operands in shared
+// memory, its fence / commit
 // / wait, the async-proxy fence, named barriers and setmaxnreg; and on the
 // host the tensor-map encoder, reached through the runtime's driver entry
 // point (so the library needs no -lcuda).
@@ -93,13 +94,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // swizzle writes it: rows of 128 bytes, 8-row groups 1024 bytes apart,
 // base 1024-byte aligned.  Both byte offsets are set to the group stride:
 // the one the layout does not use (LBO for K-major, the stride between
-// 64-column atoms for MN-major, of which every operand here has one) is
-// ignored.  The high word (SBO, the swizzle mode) is the same for every
+// 64-column atoms for MN-major where the operand has one atom) is
+// ignored; an MN-major operand of two atoms (B3 forward's V at N = 128)
+// takes their stride as LBO, desc_lo(addr, lbo).  The high word (SBO, the swizzle mode) is the same for every
 // operand; the low word of the operand at shared address addr + off is
 // desc_lo(addr) + off / 16 (addresses below 256 KB).
 constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
 __device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
   return (addr >> 4) | ((1024 >> 4) << 16);
+}
+// The same with the leading byte offset set to `lbo`: an MN-major operand
+// wider than one 64-column atom (N = 128) whose atoms lie lbo bytes apart.
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
+  return (addr >> 4) | ((lbo >> 4) << 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -129,16 +136,47 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
       "+f"(d[30]), "+f"(d[31])
+#define HOPPER_D64                                                           \
+  HOPPER_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),            \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 #define HOPPER_D32_LIST                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+
+#define HOPPER_D64_LIST                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N fp32, N = 2 x d's length, the wgmma accumulator layout:
 // d[4 j + 2 i + e] is row 16 warp + lane / 4 + 8 i, column 8 j +
 // 2 (lane % 4) + e) (+)= A B, A (64 x 16) and B (16 x N) bf16 in shared
 // memory, given by their descriptors' low words; d is overwritten when
 // accumulate == 0.  TB: B is MN-major (1) or K-major (0); A is K-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint32_t a,
+                                         uint32_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "mov.b64 da, {%64, %66};\n"
+      "mov.b64 db, {%65, %66};\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64_LIST
+      ", da, db, p, 1, 1, 0, %68;\n"
+      "}\n"
+      : HOPPER_D64
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
+}
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
                                          uint32_t b, int accumulate) {
@@ -193,7 +231,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint32_t a,
 
 #undef HOPPER_D16
 #undef HOPPER_D32
+#undef HOPPER_D64
 #undef HOPPER_D32_LIST
+#undef HOPPER_D64_LIST
 
 // Makes the calling thread's shared-memory stores visible to the async
 // proxy (wgmma's operand reads)

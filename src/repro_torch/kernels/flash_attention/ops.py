@@ -34,7 +34,7 @@ HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
 # the pairs the backward is built for: every config's training attention,
 # MLA's (192, 128) among them
 BWD_HEAD_DIMS = ((64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
-FOLDED_ROWS = 64               # (position, query head) rows per block
+FOLDED_ROWS = 64               # fp32: (position, query head) rows per block
 STATS_PAD = 64                 # the backward's statistics: rows per pad
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,9 +114,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"supported ({HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, t)
-    # grid (Hkv, B, query tiles of FOLDED_ROWS folded rows)
-    if (B > 65535 or k.shape[1] > 65535
-            or -(-Sq * (Hq // k.shape[1]) // FOLDED_ROWS) > 65535):
+    # grids: fp32 (Hkv, B, query tiles of FOLDED_ROWS folded rows); bf16
+    # the backward's dQ (position blocks, B * Hq) and dK/dV (key blocks,
+    # B * Hkv), the forward's 1-D grid more
+    if q.dtype == torch.float32:
+        too_large = (B > 65535 or k.shape[1] > 65535
+                     or -(-Sq * (Hq // k.shape[1]) // FOLDED_ROWS) > 65535)
+    else:
+        too_large = B * Hq > 65535
+    if too_large:
         raise ValueError(f"grid too large: batch {B}, {k.shape[1]} kv "
                          f"heads, {Sq} queries of {Hq} heads")
 
@@ -322,8 +328,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's signature: the CUDA kernel tiles by its own constants and
     needs no padding.
 
-    On CUDA tensors bf16 runs both products on the tensor cores and fp32
-    on the CUDA cores (never TF32), chosen by dtype alone.  With grad mode
+    On CUDA tensors bf16 runs both products as ``wgmma`` on K/V tiles fed
+    by TMA and fp32 on the CUDA cores (never TF32), chosen by dtype alone;
+    bf16 reads q, k and v through tensor maps of their own strides, so
+    bases and strides keep to 16 bytes (``_check``).  With grad mode
     on and q, k or v requiring grad, a CUDA call goes through
     :class:`FlashAttention` (head dims in ``BWD_HEAD_DIMS``; others raise
     ``NotImplementedError``); on CPU tensors autograd differentiates the

@@ -1,13 +1,15 @@
 """The tensor-core designs of the dense flash-attention kernel (B3) and the
 paged decode kernel (B2), held on the CPU.
 
-``emulate_flash`` repeats B3's decomposition in plain PyTorch: GQA rows
-folded as position * r + head-in-group, query tiles of the kernel's height
-and key tiles of its width, each tile's key range from its first and last
-position (causal, window and kv_len skipping of whole tiles), an online
-softmax in fp32 (log2 units) with P rounded to the working type before
-PV.  ``emulate_decode`` repeats B2's: the r query rows of a (row, kv head)
-as one tile, its keys cut into the spans of the wrapper's split plan (the
+``emulate_flash`` repeats B3's fp32 decomposition in plain PyTorch: GQA
+rows folded as position * r + head-in-group, query tiles of the kernel's
+height and key tiles of its width, each tile's key range from its first
+and last position (causal, window and kv_len skipping of whole tiles), an
+online softmax in fp32 (log2 units).  B3's bf16 cases run the bf16
+kernel's own design, per-head tiles on wgmma
+(``_b3_fwd_emulation.emulate_forward``; ``test_torch_b3_fwd_design.py``).
+``emulate_decode`` repeats B2's: the r query rows of a (row, kv head) as
+one tile, its keys cut into the spans of the wrapper's split plan (the
 C = 1 plan of ``ops.split_plan``) and read through the table with every
 entry clamped, dead spans skipped, fp32 partials merged.  Both are held
 against the port's plain versions and the reference's Pallas kernels
@@ -23,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _b3_fwd_emulation import emulate_forward
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.paged_attention import paged_attention as jax_decode
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -36,10 +39,10 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 # the shared tile's sizes (csrc/attention_tile.cuh): B3's folded query rows
-# per block, key tiles by dtype, and the key tile of a one-warp split tile
+# per block and fp32 key tile, and the key tile of a one-warp split tile
 # (B2)
 QUERY_TILE = 64
-KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
+KEY_TILE = 32
 SPLIT_KEY_TILE = 32
 
 
@@ -85,12 +88,12 @@ def finish(parts, merged=False):
 
 
 def emulate_flash(q, k, v, *, causal, window):
-    """B3 as the kernel decomposes it: q (B, Hq, Sq, dh), k/v (B, Hkv, Sk,
-    dh) -> (B, Hq, Sq, dh) in q's dtype."""
+    """B3 as the fp32 kernel decomposes it: q (B, Hq, Sq, dh), k/v (B, Hkv,
+    Sk, dh) -> (B, Hq, Sq, dh) in q's dtype."""
     B, Hq, Sq, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     r, M = Hq // Hkv, Sq * (Hq // Hkv)
-    bn = KEY_TILE[q.dtype]
+    bn = KEY_TILE
     scale = LOG2E / math.sqrt(dh)
     out = torch.zeros(B, Hq, Sq, dh)
     for b in range(B):
@@ -184,7 +187,10 @@ def test_flash_emulation_matches_plain_and_pallas(name, dtype):
     # compared on the other rows
     blind = (plain == 0).all(-1).numpy()
     assert blind.any() == (Sq > Sk + window > window > 0)
-    got = emulate_flash(q, k, v, causal=causal, window=window)
+    if dtype == "bfloat16":          # the bf16 kernel's per-head design
+        got = emulate_forward(q, k, v, causal=causal, window=window)[0]
+    else:
+        got = emulate_flash(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     got = got.float().numpy()
     np.testing.assert_allclose(got, plain.float().numpy(), **TOL[dtype])
@@ -194,9 +200,10 @@ def test_flash_emulation_matches_plain_and_pallas(name, dtype):
 
 def test_flash_tiles_depend_on_shapes_alone():
     """BSHD and BHSD inputs fold to the same rows: the emulation of one
-    is the emulation of the other, bit for bit."""
+    is the emulation of the other, bit for bit (the fp32 kernel's folded
+    rows; the bf16 kernel's tiles: test_torch_b3_fwd_design.py)."""
     _, (q, k, v) = inputs([(1, 10, 40, 64), (1, 2, 40, 64), (1, 2, 40, 64)],
-                          "bfloat16", 11)
+                          "float32", 11)
     a = emulate_flash(q, k, v, causal=True, window=0)
     qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2)
                   for x in (q, k, v))

@@ -443,6 +443,89 @@ def test_flash_wrapper_takes_only_its_head_dim_pairs(cuda):
         fa_ops.flash_attention(q[..., :128], k[..., :128].contiguous(), v)
 
 
+# ------------------------------------------- B3's bf16 forward (wgmma)
+# (B, Hq, Hkv, Sq, Sk, causal, window) at every built (dh, dv): GQA r = 5
+# causal at S not a multiple of the key tile (interior, masked and skipped
+# tiles; the last block's second group past the end), MHA with a window
+# that crosses tiles, MHA non-causal, and Sq > Sk at r = 5
+FWD_DESIGN_SHAPES = [
+    (1, 10, 2, 300, 300, True, 0),
+    (1, 4, 4, 300, 300, True, 160),
+    (2, 4, 4, 200, 200, False, 0),
+    (1, 10, 2, 200, 130, True, 0),
+]
+
+
+def plain_lse(q, k, causal, window):
+    """logsumexp of each row's scaled, masked scores in fp32; -inf where a
+    row sees no key."""
+    Hq, Sq, dh = q.shape[1:]
+    Hkv, Sk = k.shape[1:3]
+    kr = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    s = q.float() @ kr.transpose(-1, -2) / dh ** 0.5
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= qp - kp < window
+    return torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
+
+
+@pytest.mark.parametrize("dims", fa_ops.HEAD_DIMS)
+@pytest.mark.parametrize("shape", range(len(FWD_DESIGN_SHAPES)))
+def test_flash_bf16_forward_design_edges(cuda, shape, dims):
+    """Output within bf16 2e-2 of the plain version and lse within 1e-4 of
+    the plain scores' logsumexp (fp32, summed in another order; exp2 on the
+    special-function unit), rows that see no key 0 and -inf."""
+    B, Hq, Hkv, Sq, Sk, causal, window = FWD_DESIGN_SHAPES[shape]
+    dh, dv = dims
+    g = torch.Generator(device=cuda).manual_seed(shape)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = rnd(B, Hq, Sq, dh), rnd(B, Hkv, Sk, dh), rnd(B, Hkv, Sk, dv)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = (out.float() - ref.float()).abs()
+    assert (err <= 2e-2 * (1 + ref.float().abs())).all(), err.max().item()
+    want = plain_lse(q, k, causal, window)
+    blind = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), blind)
+    assert torch.all(lse[blind] == float("-inf"))
+    assert torch.all(out[blind] == 0)
+    torch.testing.assert_close(lse[~blind], want[~blind], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_bf16_forward_reads_bshd_slices_of_one_qkv_tensor(cuda):
+    """q, k and v as BSHD slices of one (B, S, 3, H, dh) tensor: the same
+    bits as contiguous BHSD copies (the tiles depend on the shapes alone),
+    within bf16 2e-2 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 260, 3, 4, 128, generator=g, device=cuda).to(
+        torch.bfloat16)
+    got = fa_ops.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                 causal=True, layout="BSHD")
+    q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    want = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.transpose(1, 2), want)
+    ref = flash_attention_ref(q, k, v, causal=True).float()
+    assert ((want.float() - ref).abs() <= 2e-2 * (1 + ref.abs())).all()
+
+
+def test_flash_bf16_forward_repeats_bit_for_bit(cuda):
+    """Two launches on the same inputs give the same output and lse."""
+    q, k, v = make_flash(cuda, torch.bfloat16, 2, 10, 2, 333, 333, 128)
+    a = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=100)
+    b = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # ------------------------------------------------------ B3's backward
 # (B, Hq, Hkv, Sq, Sk, dh, causal, window): causal MHA over several key
 # blocks at each built head dim, GQA r = 5, non-causal at S not a tile
