@@ -10,9 +10,10 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
   2. build:   the four kernel sources compiled from
               src/repro_torch/kernels/{paged_attention,flash_attention}/csrc/
               (B1, B2, B3 and B3's backward), one nvcc process per source,
-              all started together; each bf16 forward and backward
-              instance's registers, spills and any wgmma serialisation from
-              ptxas's report, and a failure if one of them spills.
+              all started together; each bf16 wgmma instance's registers,
+              spills and any wgmma serialisation from ptxas's report (B3's
+              forward and backward, B1's chunked prefill), and a failure if
+              one of them spills or one of B1's serialises.
   3. kernels: each kernel against its plain PyTorch version, timed with
               CUDA events beside its bound and F.scaled_dot_product_attention
               over pre-gathered K/V.  B1 (chunked prefill) at the serving
@@ -37,7 +38,8 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               time; beside F.scaled_dot_product_attention.  Every case also
               reads the wrapper's host time per call; with --profile the
               kernel table's cases (B1 mixed and decode-only, B2 decode, B3
-              prefill), B3 at S 128, MLA (S 1024 and 4096) and the training
+              prefill), B1's prefill-only and MHA dh 96 batches, B3 at S
+              128, MLA (S 1024 and 4096) and the training
               forward also read kernel and SDPA time from the profiler's
               device trace, which holds no host time.  B3's
               backward (the D, dK/dV and dQ kernels, through
@@ -336,11 +338,12 @@ def report(kernel, name, shape, dname, max_err, ms, plain, lib, b_ms, b_by,
 
 
 # the cases whose kernel and SDPA times are also read from the device
-# trace (``device_ms``) under --profile: the kernel table's rows, B3 at
-# S = 128 and at MLA's and training's shapes.  Only then: once the profiler has run in a process, every later
+# trace (``device_ms``) under --profile: the kernel table's rows, B1's
+# other wgmma cases, B3 at S = 128 and at MLA's and training's shapes.  Only then: once the profiler has run in a process, every later
 # launch costs more host time (a plain run's tokens/s fell 10-20 % in
 # PERF.md's runs), so a plain run keeps its end-to-end numbers clean.
-DEVICE_TIMED = {"B1": ("mixed", "decode"), "B2": ("decode",),
+DEVICE_TIMED = {"B1": ("mixed", "decode", "prefill", "mha_dh96"),
+                "B2": ("decode",),
                 "B3": ("prefill", "prefill_128", "mla", "train_fwd",
                        "mla_4k")}
 
@@ -363,7 +366,11 @@ def tile_smem_bytes(size, dh, warps, dv=None):
     its sizes (``Layout`` in src/repro_torch/kernels/csrc/attention_tile.cuh):
     a Q tile of 16 rows per warp and two stages of K tiles (rows dh wide)
     and V tiles (dv, default dh; 32 keys in fp32 and in one-warp split
-    tiles, else 64), rows padded by 16 B, and in fp32 a P tile."""
+    tiles, else 64), rows padded by 16 B, and in fp32 a P tile.  The tile
+    carries B1's split tile (one warp: decode rows), its fp32 path and its
+    bf16 launches at a page outside ``ops.WGMMA_PAGES`` (4 warps), B2, and
+    B3's fp32 path; B1's bf16 launches past 16 rows take the wgmma
+    kernel."""
     dv = dh if dv is None else dv
     keys = 32 if warps == 1 or size == 4 else 64
     pad = 16 // size
@@ -438,12 +445,11 @@ def sdpa_call(args):
     return lambda: F.scaled_dot_product_attention(qf, K, V, attn_mask=mask)
 
 
-def prefill_kernel_phase(dev, flush, profile):
-    from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.ref import \
-        paged_prefill_attention_ref
+def b1_cases():
+    """B1's kernel-phase cases: name -> (dtype, C, rows of (start, n)[,
+    widths for make_rows])."""
     ragged = ragged_contexts()
-    cases = {
+    return {
         "decode": (torch.bfloat16, 1, [(c - 1, 1) for c in ragged]),
         "prefill": (torch.bfloat16, 64,
                     [(0, 64), (256, 64), (512, 64), (1024, 64)]),
@@ -463,10 +469,18 @@ def prefill_kernel_phase(dev, flush, profile):
                      [(c - 1, 1) for c in ragged] + [(512, 64), (0, 16)]
                      + [(0, 0)] * 14, dict(Hkv=32, r=1, dh=96)),
     }
+
+
+def prefill_kernel_phase(dev, flush, profile):
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_prefill_attention_ref
     results = {}
-    for name, (dtype, C, rows, *widths) in cases.items():
+    for name, (dtype, C, rows, *widths) in b1_cases().items():
         dname = dtype_name(dtype)
         args = make_rows(dev, dtype, rows, C, **(widths[0] if widths else {}))
+        B, Hkv, C, r, dh = args[0].shape
+        tile = ops.prefill_tile(dtype, C, r, args[1].shape[1])
         got = ops.paged_prefill_attention(*args)
         torch.cuda.synchronize()
         ref = paged_prefill_attention_ref(*args)
@@ -478,6 +492,8 @@ def prefill_kernel_phase(dev, flush, profile):
         lib = time_ms(sdpa, 10, flush)
         results[name] = report("B1", name, list(args[0].shape), dname,
                                max_err, ms, plain, lib, *bound(args, dname))
+        results[name]["tile"] = tile
+        log(f"B1 {name}: the {tile} tile")
         if profile and name in DEVICE_TIMED["B1"]:
             log_device_ms("B1", name, results[name],
                           lambda: ops.paged_prefill_attention(*args), sdpa,
@@ -3344,14 +3360,23 @@ def backward_entry(case, mla, launches):
 
 
 def wgmma_report(log_text):
-    """Per bf16 instance of B3's forward and backward (the wgmma kernels,
-    templated on q/k's and v's head dims and the consumer groups) in
-    ptxas's report: {kernel: (registers, spill store bytes, spill load
-    bytes, serialised)}."""
+    """Per bf16 wgmma instance in ptxas's report: B3's forward and backward
+    (templated on q/k's and v's head dims and the consumer groups) and
+    B1's chunked prefill (on the head dim and the consumer groups):
+    {kernel: (registers, spill store bytes, spill load bytes,
+    serialised)}."""
     import re
-    pattern = r"(fwd|dkdv|dq)_wgmmaILi(\d+)ELi(\d+)ELi(\d+)"
-    key = lambda m: (f"{m.group(1)} dh {m.group(2)} dv {m.group(3)} "
-                     f"({m.group(4)} groups)")
+    pattern = (r"(fwd|dkdv|dq|prefill)_wgmmaILi(\d+)ELi(\d+)E"
+               r"(?:Li(\d+)E)?(?:Li(\d+)E)?")
+
+    def key(m):
+        if m.group(1) == "prefill":  # (dh, groups, P in registers, heads)
+            where = "registers" if m.group(4) == "1" else "shared memory"
+            heads = ", a kv head each" if m.group(5) != "1" else ""
+            return (f"B1 prefill dh {m.group(2)} ({m.group(3)} groups{heads}"
+                    f", P in {where})")
+        return (f"B3 {m.group(1)} dh {m.group(2)} dv {m.group(3)} "
+                f"({m.group(4)} groups)")
     out, name = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '\S*?" + pattern, line)
@@ -3421,17 +3446,29 @@ def main(argv=None) -> int:
                     or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
     report = wgmma_report(build.BUILD_LOG.get("flash_attention", "")
-                          + build.BUILD_LOG.get("flash_attention_bwd", ""))
+                          + build.BUILD_LOG.get("flash_attention_bwd", "")
+                          + build.BUILD_LOG.get("paged_prefill_attention",
+                                                ""))
     for kname, (regs, st, ld, serial) in sorted(report.items()):
-        log(f"build: B3 bf16 {kname}: {regs} registers, spill "
+        log(f"build: bf16 {kname}: {regs} registers, spill "
             f"stores {st} B, loads {ld} B, wgmma "
             f"{'serialised' if serial else 'pipelined'}")
+    # B3's forward and backward instances; B1's row-group kernel (C * r >
+    # 64) and two-head kernel (C * r <= 64) at each head dim, and its
+    # two-group kernel for grids that three groups leave short of the SMs
+    # at dh 64 and 128
     assert len(report) == (len(fa_ops.HEAD_DIMS)
-                           + 2 * len(fa_ops.BWD_HEAD_DIMS)), report
+                           + 2 * len(fa_ops.BWD_HEAD_DIMS)
+                           + 2 * len(ops.HEAD_DIMS)
+                           + sum(dh != 96 for dh in ops.HEAD_DIMS)), report
     spilled = {k: v for k, v in report.items() if v[1] or v[2]}
     if spilled:
-        raise AssertionError(f"bf16 forward or backward instances spill: "
-                             f"{spilled}")
+        raise AssertionError(f"bf16 wgmma instances spill: {spilled}")
+    serialised = {k: v for k, v in report.items()
+                  if k.startswith("B1") and v[3]}
+    if serialised:
+        raise AssertionError(f"B1's wgmma instances serialise their "
+                             f"products: {serialised}")
     for kid, warps in (("B1", (1, 4)), ("B2", (1,))):
         log(f"build: {NAMES[kid]}: dynamic shared memory per block " +
             ", ".join(f"{dt} dh {dh} {w} warp(s) "

@@ -1,6 +1,10 @@
 // One block's attention tile, shared by the port's attention kernels for
-// Hopper (sm_90a): the chunked paged prefill (B1), paged decode (B2) and
-// dense flash attention (B3).  Each kernel supplies a block view ``Blk`` of
+// Hopper (sm_90a): the chunked paged prefill's split tile (B1 where a
+// (row, kv head) has at most 16 folded rows), its fp32 path and its bf16
+// launches at a page the wgmma kernel's boxes do not take; paged decode
+// (B2); and dense flash attention's fp32 path (B3).  B1's other bf16
+// launches and B3's bf16 forward and backward run TMA-fed wgmma kernels of
+// their own (hopper.cuh).  Each kernel supplies a block view ``Blk`` of
 // one (batch row, kv head): where its folded query rows, keys, values and
 // outputs live, and which keys each row sees.  The tile computes online
 // softmax attention of up to 16 * kWarps folded query rows over the keys
@@ -19,8 +23,9 @@
 // sum over the 4 threads of a quad), and P is rounded to bf16 in registers
 // and used directly as the A operand of P.V (the FlashAttention-2 register
 // layout): exactly the references' p.astype(v.dtype), while l sums the
-// unrounded fp32 P.  mma.sync rather than wgmma: its 16-row tile wastes
-// less on a 5-row decode tile than wgmma's 64 rows.
+// unrounded fp32 P.  mma.sync rather than wgmma for the tiles it still
+// carries: its 16-row tile wastes less on a 5-row decode tile (B1's split
+// tile, B2) than wgmma's 64 rows.
 //
 // Design (fp32).  The same tiles, pipeline and softmax, both products as
 // fp32 FMAs on the CUDA cores (never TF32: the 2e-5 tolerance forbids it),

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) primitives by inline PTX: mbarriers, TMA tensor and bulk
 // copies, wgmma shared-memory matrix descriptors, the bf16 m64n128k16,
 // m64n64k16, m64n32k16 and m64n16k16 wgmma with both operands in shared
-// memory, its fence / commit
-// / wait, the async-proxy fence, named barriers and setmaxnreg; and on the
-// host the tensor-map encoder, reached through the runtime's driver entry
-// point (so the library needs no -lcuda).
+// memory (and m64n128k16, m64n64k16, m64n32k16 with A in registers), its
+// fence / commit / wait, the async-proxy fence, named barriers and
+// setmaxnreg; and on the host the tensor-map encoder, reached through the
+// runtime's driver entry point (so the library needs no -lcuda).
 
 #pragma once
 
@@ -100,6 +100,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // operand; the low word of the operand at shared address addr + off is
 // desc_lo(addr) + off / 16 (addresses below 256 KB).
 constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
+// The high word of an operand in TMA's 64-byte swizzle instead (rows of
+// 64 bytes: 32 bf16 columns, 8-row groups 512 bytes apart, base 512-byte
+// aligned); the low words are built as above.
+constexpr uint32_t kDescHi64 = (512 >> 4) | (2u << 30);
 __device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
   return (addr >> 4) | ((1024 >> 4) << 16);
 }
@@ -125,6 +129,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define HOPPER_D16                                                           \
@@ -161,6 +170,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // 2 (lane % 4) + e) (+)= A B, A (64 x 16) and B (16 x N) bf16 in shared
 // memory, given by their descriptors' low words; d is overwritten when
 // accumulate == 0.  TB: B is MN-major (1) or K-major (0); A is K-major.
+// H (N = 64): both operands' high word, kDescHi64 for operands in the
+// 64-byte swizzle.
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint32_t a,
                                          uint32_t b, int accumulate) {
@@ -177,7 +188,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint32_t a,
       : HOPPER_D64
       : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
 }
-template <int TB>
+template <int TB, uint32_t H = kDescHi>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
                                          uint32_t b, int accumulate) {
   asm volatile(
@@ -191,7 +202,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
       ", da, db, p, 1, 1, 0, %36;\n"
       "}\n"
       : HOPPER_D32
-      : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
+      : "r"(a), "r"(b), "r"(H), "r"(accumulate), "n"(TB));
 }
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint32_t a,
@@ -227,6 +238,65 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint32_t a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a), "r"(b), "r"(kDescHi), "r"(accumulate), "n"(TB));
+}
+
+// The same with A (64 x 16 bf16) in registers: a[4] is the thread's
+// fragment (rows 16 warp + lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}
+// and + 8, bf16 pairs), the layout of an accumulator's columns 16 k ..
+// 16 k + 15 rounded and packed (pack_a); B in shared memory (H its high
+// word at N = 32).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint32_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "mov.b64 db, {%68, %69};\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64_LIST
+      ", {%64, %65, %66, %67}, db, p, 1, 1, %71;\n"
+      "}\n"
+      : HOPPER_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(kDescHi),
+        "r"(accumulate), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint32_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "mov.b64 db, {%36, %37};\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+      ", {%32, %33, %34, %35}, db, p, 1, 1, %39;\n"
+      "}\n"
+      : HOPPER_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(kDescHi),
+        "r"(accumulate), "n"(TB));
+}
+
+template <int TB, uint32_t H = kDescHi>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint32_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "mov.b64 db, {%20, %21};\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, db, p, 1, 1, %23;\n"
+      "}\n"
+      : HOPPER_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(H),
+        "r"(accumulate), "n"(TB));
 }
 
 #undef HOPPER_D16
@@ -286,10 +356,11 @@ inline EncodeTiledFn encode_tiled() {
 // The tensor map of a bf16 tensor (B, H, S, D) read by element strides
 // st = (B, H, S) with D contiguous, as 4-D (D, S, H, B): boxes of 64
 // columns x `rows` positions of one (b, h), 128-byte swizzled, zeros
-// outside the tensor (columns past D included).  False if the driver
-// refuses it (a base or stride off 16 bytes).
+// outside the tensor (columns past D included); with cols == 32, boxes of
+// 32 columns in the 64-byte swizzle.  False if the driver refuses it (a
+// base or stride off 16 bytes).
 inline bool bf16_map(CUtensorMap* map, const void* base, int B, int H, int S,
-                     int D, const long long* st, int rows) {
+                     int D, const long long* st, int rows, int cols = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -301,11 +372,14 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int B, int H, int S,
                            static_cast<cuuint64_t>(st[0]) * 2};
   for (int i = 0; i < 3; ++i)   // an axis of extent 1 is never stepped
     if (dims[i + 1] == 1) strides[i] = static_cast<cuuint64_t>(D) * 2;
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

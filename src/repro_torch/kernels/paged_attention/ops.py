@@ -5,7 +5,11 @@
                              schedule's decode call)
   paged_prefill_attention  — causal chunk attention
                              (``csrc/paged_prefill_attention.cu``; the fused
-                             step and the split schedule's prefill call)
+                             step and the split schedule's prefill call):
+                             in bf16 at more than SPLIT_ROWS folded rows a
+                             (row, kv head) and a page in WGMMA_PAGES a
+                             TMA-fed wgmma kernel, elsewhere the shared
+                             mma.sync / FMA tile (``prefill_tile``)
 
 On CUDA tensors each launches its hand-written Hopper kernel (built at
 first use); on CPU tensors it runs the plain PyTorch version, the role
@@ -39,6 +43,9 @@ HEAD_DIMS = (64, 96, 128)
 SPLIT_ROWS = 16
 SPAN_ALIGN = 64                # a multiple of every key tile of the kernel
 SPLIT_BLOCKS = 1024            # blocks the split plan aims to put on the card
+# pages the prefill kernel's wgmma path reads as TMA boxes: a 64-key tile
+# in boxes of whole 1024-byte swizzle groups
+WGMMA_PAGES = (8, 16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches so far, per wrapper (a run resets them to 0 and reads
@@ -196,6 +203,20 @@ def split_plan(B: int, Hkv: int, C: int, r: int, max_pages: int,
     return max(1, -(-S // span)), span
 
 
+def prefill_tile(dtype, C: int, r: int, page: int) -> str:
+    """The tile a CUDA ``paged_prefill_attention`` launch runs, from its
+    dtype and shapes alone (``dispatch_rows`` in the source): ``"split"``
+    (one warp a block, keys split into spans) where a (row, kv head) has
+    at most ``SPLIT_ROWS`` folded rows; ``"wgmma"`` (the TMA-fed ``wgmma``
+    kernel) in bf16 at a page in ``WGMMA_PAGES``; else ``"shared"`` (the
+    mma.sync / FMA tile of ``kernels/csrc/attention_tile.cuh``)."""
+    if C * r <= SPLIT_ROWS:
+        return "split"
+    if dtype == torch.bfloat16 and page in WGMMA_PAGES:
+        return "wgmma"
+    return "shared"
+
+
 def split_scratch_floats(B: int, Hkv: int, C: int, r: int, dh: int,
                          n_splits: int) -> int:
     """fp32 scratch of a split launch: (m, l, acc) partials, (dh + 2)
@@ -217,13 +238,17 @@ def paged_prefill_attention(q: torch.Tensor, kpool: torch.Tensor,
                   view into the (L, slots, page, dh) pool (no copy)
     block_tables: (B, Hkv, max_pages) int — entries past the written length
                   may be arbitrary ids; they are clipped into range
-    lengths:      (B,) int keys visible after the chunk's writes (0 pads)
+    lengths:      (B,) int keys visible after the chunk's writes (0 pads);
+                  what the pools hold past them (non-finite values too)
+                  does not reach the output
     starts:       (B,) int absolute position of each chunk's first token
     returns       (B, Hkv, C, r, dh); on CUDA the transposed view of a
                   contiguous (B, C, Hkv, r, dh) tensor
 
     On CUDA tensors bf16 runs both products on the tensor cores and fp32
-    on the CUDA cores (never TF32), chosen by dtype alone.
+    on the CUDA cores (never TF32), the tile chosen by dtype and shapes
+    alone (``prefill_tile``).  The wgmma path's K and V tensor maps are
+    encoded once per pool view, inside the library.
     """
     if q.ndim != 5 or kpool.ndim != 3 or block_tables.ndim != 3:
         raise ValueError(f"bad ranks: q {tuple(q.shape)}, kpool "

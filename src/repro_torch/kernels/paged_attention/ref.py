@@ -45,7 +45,8 @@ def paged_prefill_attention_ref(q: torch.Tensor, kpool: torch.Tensor,
     """q:            (B, Hkv, C, r, dh) — one prompt chunk per sequence
     kpool/vpool:  (num_slots, page, dh)
     block_tables: (B, Hkv, max_pages) int slot ids, all in range
-    lengths:      (B,) int keys visible after the chunk's writes (0 pads)
+    lengths:      (B,) int keys visible after the chunk's writes (0 pads);
+                  the pools' contents past them may be anything
     starts:       (B,) int absolute position of q[:, :, 0]
     returns       (B, Hkv, C, r, dh)
     """
@@ -57,10 +58,15 @@ def paged_prefill_attention_ref(q: torch.Tensor, kpool: torch.Tensor,
 
     K = kpool[bt].reshape(B, Hkv, S, dh)
     V = vpool[bt].reshape(B, Hkv, S, dh)
+    k_pos = torch.arange(S, device=q.device)
+    # keys past the length are not read: what a slot holds there, a
+    # non-finite value too, does not reach the output (P = 0 times it
+    # would be NaN)
+    V = V.masked_fill((k_pos[None, :] >= lengths.long()[:, None])
+                      [:, None, :, None], 0)
 
     s = torch.einsum("bhcrd,bhkd->bhcrk", q.float(), K.float()) \
         / math.sqrt(dh)
-    k_pos = torch.arange(S, device=q.device)
     q_pos = starts.long()[:, None] + torch.arange(C, device=q.device)[None]
     ok = (k_pos[None, None, :] <= q_pos[:, :, None]) \
         & (k_pos[None, None, :] < lengths.long()[:, None, None])  # (B, C, S)

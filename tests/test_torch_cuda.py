@@ -199,6 +199,179 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.paged_prefill_attention(q, k, v, tables, lengths.cpu(), starts)
 
 
+# B1's wgmma path (bf16, C * r > 16, a page in ops.WGMMA_PAGES) at each
+# head dim: the mixed row mix of a fused step (decode rows in the 64-token
+# bucket, a full and a partial chunk, padded rows), at r = 5 (320 rows: two
+# blocks of three consumer groups, two at dh 96), r = 6 (384: whole
+# blocks), r = 1 (64 rows: one group a kv head, two heads a block) and
+# r = 2 at C = 40 (80 rows: a block with an empty group); pages of 8 and
+# 32 keys; an odd number of kv heads at 64 rows or fewer.  On an H100 these
+# small grids take two-group blocks at dh 64 and 128 (three would leave SMs
+# idle); the wide cases take three
+WGMMA_SHAPES = {
+    **{f"mixed_dh{dh}_r{r}": dict(B=5, Hkv=2, C=64, r=r, dh=dh, page=16,
+                                  maxp=48, starts=[700, 0, 130, 0, 64],
+                                  nvalid=[1, 64, 30, 0, 1])
+       for dh in ops.HEAD_DIMS for r in (1, 5)},
+    "mixed_dh128_r6": dict(B=3, Hkv=2, C=64, r=6, dh=128, page=16, maxp=40,
+                           starts=[600, 17, 0], nvalid=[1, 64, 0]),
+    "r2_c40_page8": dict(B=3, Hkv=3, C=40, r=2, dh=64, page=8, maxp=64,
+                         starts=[300, 5, 0], nvalid=[1, 40, 0]),
+    "page32_dh96": dict(B=2, Hkv=2, C=64, r=1, dh=96, page=32, maxp=24,
+                        starts=[500, 33], nvalid=[1, 64]),
+    # 48 rows, three kv heads: two heads a block, the last block one
+    "mha_hkv3_dh128": dict(B=3, Hkv=3, C=48, r=1, dh=128, page=16, maxp=32,
+                           starts=[400, 0, 0], nvalid=[1, 48, 0]),
+    # two heads a block at dh 96 (32-column atoms) and page 8: 48 boxes a
+    # tile, issued in two rounds
+    "mha_page8_dh96": dict(B=3, Hkv=3, C=48, r=1, dh=96, page=8, maxp=64,
+                           starts=[300, 0, 0], nvalid=[1, 48, 0]),
+    # a table of 720 keys (not whole 64-key tiles), a row reaching its
+    # last tile: the producer's boxes for pages 45-47 lie past the table
+    "past_table_dh64": dict(B=2, Hkv=2, C=64, r=5, dh=64, page=16, maxp=45,
+                            starts=[710, 0], nvalid=[1, 64]),
+    # enough (row, kv head)s that three groups a block fill an H100's 132
+    # SMs (the cases above take two-group blocks there)
+    **{f"wide_dh{dh}_r5": dict(B=17, Hkv=4, C=64, r=5, dh=dh, page=16,
+                               maxp=32, starts=[300 + 7 * i for i in range(16)]
+                               + [0], nvalid=[1] * 15 + [64, 0])
+       for dh in (64, 128)},
+}
+
+
+def wgmma_case(dev, name, seed=0):
+    shape = WGMMA_SHAPES[name]
+    args = make(dev, torch.bfloat16, seed=seed, **shape)
+    assert ops.prefill_tile(torch.bfloat16, shape["C"], shape["r"],
+                            shape["page"]) == "wgmma"
+    return args
+
+
+def assert_close_to_plain(got, args, tables=None):
+    q, k, v, tb, lengths, starts = args
+    tb = tb if tables is None else tables
+    ref = paged_prefill_attention_ref(q, k, v, tb, lengths, starts)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= 2e-2 * (1 + ref.float().abs())).all(), err.max().item()
+    assert torch.isfinite(got).all()
+    for b in (lengths == 0).nonzero().flatten().tolist():
+        assert torch.all(got[b] == 0)            # padded rows exactly 0
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA_SHAPES))
+def test_wgmma_path_matches_plain(cuda, name):
+    """The TMA-fed wgmma kernel against the plain version, with q as the
+    model's transposed view too (bit-equal to a contiguous q), and two
+    launches bit-equal."""
+    args = wgmma_case(cuda, name)
+    before = ops.LAUNCHES["paged_prefill_attention"]
+    got = ops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_prefill_attention"] == before + 1
+    assert_close_to_plain(got, args)
+    q = args[0]
+    qv = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qv.is_contiguous()
+    again = ops.paged_prefill_attention(qv, *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("name", ["mixed_dh128_r5", "mixed_dh96_r1",
+                                  "r2_c40_page8"])
+def test_wgmma_path_clamps_tables_and_lengths(cuda, name):
+    """Table entries out of the pool are clamped into it, pages past the
+    table row count for nothing, and a length past the table sees only
+    the table's keys, as the plain version over clamped tables."""
+    q, k, v, tables, lengths, starts = wgmma_case(cuda, name, seed=3)
+    bad = tables.clone()
+    n_pages = tables.shape[-1]
+    bad[:, :, n_pages // 2:] = -3
+    bad[0, :, n_pages // 3:] = 10 ** 6
+    got = ops.paged_prefill_attention(q, k, v, bad, lengths, starts)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, (q, k, v, tables, lengths, starts),
+                          tables=bad.clamp(0, k.shape[0] - 1))
+    long = torch.where(lengths > 0, 10 ** 6, 0).to(torch.int32)
+    late = torch.where(lengths > 0, starts + 10 ** 5, starts).to(torch.int32)
+    got = ops.paged_prefill_attention(q, k, v, tables, long, late)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, (q, k, v, tables, long, late))
+
+
+@pytest.mark.parametrize("page", [4, 128])
+def test_other_pages_take_the_shared_tile(cuda, page):
+    """A page the wgmma path's boxes do not take goes, by the shape
+    dispatch, to the shared tile, which reads any page size."""
+    shape = dict(WGMMA_SHAPES["mixed_dh128_r5"], page=page,
+                 maxp=2048 // page)
+    assert ops.prefill_tile(torch.bfloat16, shape["C"], shape["r"],
+                            page) == "shared"
+    args = make(cuda, torch.bfloat16, **shape)
+    got = ops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, args)
+
+
+# every prefill tile: the wgmma path (three groups and two heads a block,
+# pages past the table), the shared tile at page 4, the split tile
+# (decode rows) and fp32
+POISON_CASES = {
+    **{name: (torch.bfloat16, WGMMA_SHAPES[name])
+       for name in ("mixed_dh128_r5", "mixed_dh96_r1", "mixed_dh96_r5",
+                    "r2_c40_page8", "past_table_dh64")},
+    "shared_page4": (torch.bfloat16, dict(WGMMA_SHAPES["mixed_dh128_r5"],
+                                          page=4, maxp=512)),
+    "split_decode": (torch.bfloat16, SHAPES[0]),
+    "fp32_mixed": (torch.float32, SHAPES[3]),
+}
+
+
+def poisoned(args):
+    """args with NaN in every pool row past each row's length (the last
+    page's tail, the table row's later pages, a padded row's pages) and in
+    the slots no table names."""
+    q, k, v, tables, lengths, starts = args
+    k, v = k.clone(), v.clone()
+    slots, page, _ = k.shape
+    maxp = tables.shape[-1]
+    pos = torch.arange(maxp * page, device=k.device)
+    slot = tables.long()[..., pos // page]                   # (B, Hkv, S)
+    row = (pos % page).expand_as(slot)
+    past = (pos >= lengths.long().clamp(0, maxp * page)[:, None, None]
+            ).expand_as(slot)
+    k[slot[past], row[past]] = float("nan")
+    v[slot[past], row[past]] = float("nan")
+    named = torch.zeros(slots, dtype=torch.bool, device=k.device)
+    named[tables.long().flatten()] = True
+    k[~named] = float("nan")
+    v[~named] = float("nan")
+    return q, k, v, tables, lengths, starts
+
+
+@pytest.mark.parametrize("name", sorted(POISON_CASES))
+def test_pool_contents_past_the_lengths_do_not_reach_the_output(cuda, name):
+    """Whatever the pools hold past each row's length, non-finite values
+    too, the output is the plain version's on finite pools.  The table
+    names no slot 0, so that the wgmma producer's slot for pages past the
+    table row holds NaN too."""
+    dtype, shape = POISON_CASES[name]
+    q, k, v, tables, lengths, starts = make(cuda, dtype, seed=5, **shape)
+    named = torch.zeros(k.shape[0], dtype=torch.bool, device=cuda)
+    named[tables.long().flatten()] = True
+    tables = torch.where(tables == 0, (~named).nonzero()[0, 0].to(
+        torch.int32), tables)
+    clean = (q, k, v, tables, lengths, starts)
+    got = ops.paged_prefill_attention(*poisoned(clean))
+    torch.cuda.synchronize()
+    ref = paged_prefill_attention_ref(*clean)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+        err.max().item()
+    assert torch.isfinite(got).all()
+
+
 # decode kernel: (B, Hkv, r, dh, page, maxp, lengths) — qwen3-14b's GQA
 # r = 5 with ragged contexts to 2048 and padded rows, MHA r = 1 at dh 64,
 # r = 7 at dh 96 (a masked tile), contexts on and off span boundaries
