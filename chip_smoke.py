@@ -339,11 +339,14 @@ def report(kernel, name, shape, dname, max_err, ms, plain, lib, b_ms, b_by,
 
 # the cases whose kernel and SDPA times are also read from the device
 # trace (``device_ms``) under --profile: the kernel table's rows, B1's
-# other wgmma cases, B3 at S = 128 and at MLA's and training's shapes.  Only then: once the profiler has run in a process, every later
-# launch costs more host time (a plain run's tokens/s fell 10-20 % in
+# other wgmma cases, the decode tile's other cases (B1 at 2048 keys and at
+# the MHA models' decode rows, B2's MHA batches), B3 at S = 128 and at MLA's and training's shapes.  Only
+# then: once the profiler has run in a process, every later launch costs
+# more host time (a plain run's tokens/s fell 10-20 % in
 # PERF.md's runs), so a plain run keeps its end-to-end numbers clean.
-DEVICE_TIMED = {"B1": ("mixed", "decode", "prefill", "mha_dh96"),
-                "B2": ("decode",),
+DEVICE_TIMED = {"B1": ("mixed", "decode", "prefill", "mha_dh96",
+                       "decode_2048", "decode_mha_dh96", "decode_mha_dh64"),
+                "B2": ("decode", "mha_dh64", "mha_dh96"),
                 "B3": ("prefill", "prefill_128", "mla", "train_fwd",
                        "mla_4k")}
 
@@ -464,6 +467,13 @@ def b1_cases():
                        + [(0, 0)] * 14),
         # 16 decode rows at the engine's longest context (2048 keys)
         "decode_2048": (torch.bfloat16, 1, [(2047, 1)] * 16),
+        # the decode rows of an MHA model's fused step (r = 1), which run
+        # the split tile: phi3-mini's widths (32 kv heads, dh 96) and
+        # qwen1.5-0.5b's (16 kv heads, dh 64)
+        "decode_mha_dh96": (torch.bfloat16, 1, [(c - 1, 1) for c in ragged],
+                            dict(Hkv=32, r=1, dh=96)),
+        "decode_mha_dh64": (torch.bfloat16, 1, [(c - 1, 1) for c in ragged],
+                            dict(Hkv=16, r=1, dh=64)),
         # the mixed batch at phi3-mini's MHA widths (32 kv heads, dh 96)
         "mha_dh96": (torch.bfloat16, 64,
                      [(c - 1, 1) for c in ragged] + [(512, 64), (0, 16)]
@@ -480,7 +490,7 @@ def prefill_kernel_phase(dev, flush, profile):
         dname = dtype_name(dtype)
         args = make_rows(dev, dtype, rows, C, **(widths[0] if widths else {}))
         B, Hkv, C, r, dh = args[0].shape
-        tile = ops.prefill_tile(dtype, C, r, args[1].shape[1])
+        tile = ops.launch_tile(dtype, C, r, args[1].shape[1])
         got = ops.paged_prefill_attention(*args)
         torch.cuda.synchronize()
         ref = paged_prefill_attention_ref(*args)
@@ -573,12 +583,12 @@ def sdpa_decode_call(args):
     return lambda: F.scaled_dot_product_attention(q, K, V, attn_mask=mask)
 
 
-def decode_kernel_phase(dev, flush, profile):
-    from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+def b2_cases():
+    """B2's kernel-phase cases: name -> (dtype, widths for
+    make_decode_rows, lengths, out-of-range table entries)."""
     ragged = ragged_contexts()
     qwen = dict(Hkv=8, r=5, dh=128)
-    cases = {
+    return {
         # a split decode call's batch at qwen3-14b's shapes
         "decode": (torch.bfloat16, qwen, ragged, False),
         "decode_fp32": (torch.float32, qwen, ragged, False),
@@ -591,14 +601,20 @@ def decode_kernel_phase(dev, flush, profile):
         "padded": (torch.bfloat16, qwen, ragged[:12] + [0] * 4, False),
         "bad_tables": (torch.bfloat16, qwen, ragged, True),
     }
+
+
+def decode_kernel_phase(dev, flush, profile):
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     results = {}
-    for name, (dtype, widths, lengths, bad) in cases.items():
+    for name, (dtype, widths, lengths, bad) in b2_cases().items():
         dname = dtype_name(dtype)
         args = make_decode_rows(dev, dtype, lengths, bad_tables=bad,
                                 **widths)
         q, kpool, vpool, tables, lens = args
         clipped = (q, kpool, vpool, tables.clamp(0, kpool.shape[0] - 1),
                    lens)
+        tile = ops.decode_tile(dtype, kpool.shape[1], q.shape[2])
         got = ops.paged_attention(*args)
         torch.cuda.synchronize()
         ref = paged_attention_ref(*clipped)
@@ -609,6 +625,8 @@ def decode_kernel_phase(dev, flush, profile):
         lib = time_ms(sdpa, 10, flush)
         results[name] = report("B2", name, list(q.shape), dname, max_err, ms,
                                plain, lib, *bound_decode(args, dname))
+        results[name]["tile"] = tile
+        log(f"B2 {name}: the {tile} tile")
         host = host_ms(lambda: ops.paged_attention(*args), 20)
         results[name]["host_ms"] = host
         log(f"B2 {name}: wrapper host_ms {host:.4f} per call")
@@ -1658,6 +1676,8 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     torch.cuda.reset_peak_memory_stats()
     for k in ops.LAUNCHES:                 # the main path's run starts here
         ops.LAUNCHES[k] = 0
+    for k in ops.PREFILL_TILE_LAUNCHES:
+        ops.PREFILL_TILE_LAUNCHES[k] = 0
     t0 = time.perf_counter()
     with moe:
         # the checked calls come early; the window after them is all
@@ -1673,6 +1693,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
             torch.cuda.synchronize()
             win_wall = time.perf_counter() - tw
         launches = dict(ops.LAUNCHES)      # ... and ends here
+        b1_tiles = dict(ops.PREFILL_TILE_LAUNCHES)
     install(call_fn)                       # no cycle keeps the pools alive
     del eng._upload, eng.step
     # serving wall time: the run less the checks' own work (pool copies,
@@ -1694,7 +1715,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     moe_T, moe_capped = moe.summary()
     out = dict(config=cfg.name, layers=cfg.n_layers,
                kv_dtype=cfg.kv_dtype, mode=mode, launches=launches,
-               steps=steps, wall_s=wall,
+               b1_tiles=b1_tiles, steps=steps, wall_s=wall,
                moe_calls=len(moe.calls), moe_T=moe_T,
                moe_capped_calls=moe_capped,
                check_s=check_s[0], tokens_per_s=gen / wall,
@@ -1782,6 +1803,10 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
             (launches, cfg.n_layers, n_dec)
         assert launches[NAMES["B1"]] == cfg.n_layers * n_pre > 0, \
             (launches, cfg.n_layers, n_pre)
+    log(f"engine ({tag}): B1 launches by tile {b1_tiles} (the decode tile "
+        f"'tma' where a GQA step packs no prefill chunk, the split tile "
+        f"'warp' where an MHA one does)")
+    assert sum(b1_tiles.values()) == launches[NAMES["B1"]], b1_tiles
     for kind, res in checks.items():
         log(f"engine ({tag}): {kind} call ({res['decode_rows']} decode + "
             f"{res['prefill_rows']} prefill rows, {res['lanes']} exchange "
@@ -3334,6 +3359,29 @@ def kernel_entry(kid, case, launches):
             "library_ms": case["library_ms"]}
 
 
+# B1's decode-row cases in the kernels line: qwen3-14b's widths (GQA, the
+# decode tile), at 2048 keys, and the MHA models' (r = 1, the split tile):
+# phi3-mini's and qwen1.5-0.5b's
+DECODE_ROWS = ("decode", "decode_2048", "decode_mha_dh96", "decode_mha_dh64")
+
+
+def decode_tile_entry(cases, launches):
+    """B1's launches of at most 16 folded rows a (row, kv head) on the
+    decode tile in the kernels line (``csrc/paged_decode_tma.cuh``, which
+    B2's bf16 launches at r > 1 run too): its numbers at B1's ``decode``
+    case and, under "cases", each of DECODE_ROWS with the tile it ran; its
+    launches those of the engine runs' GQA steps that packed no prefill
+    chunk."""
+    entry = kernel_entry("B1", cases[DECODE_ROWS[0]], launches)
+    entry.update(name=NAMES["B1"] + " (decode tile)",
+                 source="src/repro_torch/kernels/paged_attention/csrc/"
+                        "paged_decode_tma.cuh",
+                 cases={n: {k: cases[n][k] for k in (
+                     "tile", "shape", "max_abs_err", "ms", "bound_ms",
+                     "library_ms")} for n in DECODE_ROWS})
+    return entry
+
+
 def backward_entry(case, mla, launches):
     """B3's backward in the kernels line: its numbers at the train phase's
     shape (``case``; MLA's (192, 128) instance at deepseek-v3's
@@ -3360,16 +3408,21 @@ def backward_entry(case, mla, launches):
 
 
 def wgmma_report(log_text):
-    """Per bf16 wgmma instance in ptxas's report: B3's forward and backward
-    (templated on q/k's and v's head dims and the consumer groups) and
-    B1's chunked prefill (on the head dim and the consumer groups):
+    """Per bf16 TMA-fed instance in ptxas's report: B3's forward and
+    backward (templated on q/k's and v's head dims and the consumer
+    groups), B1's chunked prefill (on the head dim and the consumer
+    groups) and the decode tile (on the head dim, in B2's library or B1's):
     {kernel: (registers, spill store bytes, spill load bytes,
     serialised)}."""
     import re
-    pattern = (r"(fwd|dkdv|dq|prefill)_wgmmaILi(\d+)ELi(\d+)E"
-               r"(?:Li(\d+)E)?(?:Li(\d+)E)?")
+    pattern = (r"(?:(fwd|dkdv|dq|prefill)_wgmmaILi(\d+)ELi(\d+)E"
+               r"(?:Li(\d+)E)?(?:Li(\d+)E)?"
+               r"|paged_decode_tmaILi(\d+)ELb([01])E)")
 
     def key(m):
+        if m.group(6):                # the decode tile (dh, decode)
+            lib = "B2" if m.group(7) == "1" else "B1"
+            return f"{lib} decode tile dh {m.group(6)} (mma.sync, TMA ring)"
         if m.group(1) == "prefill":  # (dh, groups, P in registers, heads)
             where = "registers" if m.group(4) == "1" else "shared memory"
             heads = ", a kv head each" if m.group(5) != "1" else ""
@@ -3445,10 +3498,8 @@ def main(argv=None) -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"build: {name}: {line.strip()}")
-    report = wgmma_report(build.BUILD_LOG.get("flash_attention", "")
-                          + build.BUILD_LOG.get("flash_attention_bwd", "")
-                          + build.BUILD_LOG.get("paged_prefill_attention",
-                                                ""))
+    report = wgmma_report("".join(build.BUILD_LOG.get(name, "")
+                                  for name, _ in sources))
     for kname, (regs, st, ld, serial) in sorted(report.items()):
         log(f"build: bf16 {kname}: {regs} registers, spill "
             f"stores {st} B, loads {ld} B, wgmma "
@@ -3456,14 +3507,16 @@ def main(argv=None) -> int:
     # B3's forward and backward instances; B1's row-group kernel (C * r >
     # 64) and two-head kernel (C * r <= 64) at each head dim, and its
     # two-group kernel for grids that three groups leave short of the SMs
-    # at dh 64 and 128
+    # at dh 64 and 128; the decode tile at each head dim in B1's library
+    # and in B2's
     assert len(report) == (len(fa_ops.HEAD_DIMS)
                            + 2 * len(fa_ops.BWD_HEAD_DIMS)
                            + 2 * len(ops.HEAD_DIMS)
-                           + sum(dh != 96 for dh in ops.HEAD_DIMS)), report
+                           + sum(dh != 96 for dh in ops.HEAD_DIMS)
+                           + 2 * len(ops.HEAD_DIMS)), report
     spilled = {k: v for k, v in report.items() if v[1] or v[2]}
     if spilled:
-        raise AssertionError(f"bf16 wgmma instances spill: {spilled}")
+        raise AssertionError(f"bf16 TMA-fed instances spill: {spilled}")
     serialised = {k: v for k, v in report.items()
                   if k.startswith("B1") and v[3]}
     if serialised:
@@ -3570,6 +3623,10 @@ def main(argv=None) -> int:
                                            for r in runs))
                for kid, case in (("B1", b1["mixed"]), ("B2", b2["decode"]),
                                  ("B3", b3["prefill"]))]
+    entries.insert(1, decode_tile_entry(
+        b1, sum(r.get("b1_tiles", {}).get("tma", 0)
+                          for r in runs)))
+    assert all(e["launches"] > 0 for e in entries), entries
     entries.append(backward_entry(
         b3_bwd["train"], b3_bwd["mla"],
         collections.Counter(training["launches"])

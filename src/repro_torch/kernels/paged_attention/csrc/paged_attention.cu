@@ -19,9 +19,19 @@
 // the K/V of every key below lengths[b] read once, plus q, the table
 // entries and the output.
 //
-// What this design does about it: the chunked-prefill kernel's split tile
-// (paged_block.cuh over ../../csrc/attention_tile.cuh), which is the same
-// function at C = 1 and starts[b] = lengths[b] - 1.
+// What this design does about it, in bf16 at a page of 8, 16, 32 or 64
+// keys (every served config: 16) and r > 1: the decode tile of
+// paged_decode_tma.cuh, which B1 shares for its launches of at most 16
+// folded rows a (row, kv head).  A persistent grid of two blocks an SM splits the live 64-key
+// tiles of all (row, kv head)s between them (each (row, kv head)
+// weighed as its tiles plus a fixed cost), each block a TMA
+// producer warp keeping a ring of page boxes in flight and four mma.sync
+// consumer warps, 16 keys of each tile apiece; a (row, kv head) that
+// crosses blocks is merged by the last of them, in the same launch.
+//
+// Elsewhere (fp32, other pages, MHA's r = 1) the chunked-prefill kernel's
+// split tile (paged_block.cuh over ../../csrc/attention_tile.cuh), which
+// is the same function at C = 1 and starts[b] = lengths[b] - 1.
 //  - One warp per (key span, kv head, row): the r <= 16 query rows of the
 //    (row, kv head) are one m16 tile, so every K/V tile read serves all r
 //    rows.  The spans come from the wrapper's shape-only plan
@@ -29,8 +39,8 @@
 //    multiples), so the bytes of a ragged batch stream in parallel.
 //  - 32-key tiles arrive by 16-byte cp.async through the table (one table
 //    read per key, the entry clamped into the pool here, not on the host)
-//    into two stages; both products run as mma.sync bf16 with fp32
-//    accumulators (fp32: FMAs on the CUDA cores, never TF32).
+//    into two stages; both products run as FMAs on the CUDA cores (never
+//    TF32; mma.sync bf16 at another page).
 //  - Each block writes its span's fp32 (m, l, acc) partials and a second
 //    kernel merges the live spans; blocks whose span starts at or past the
 //    length exit at once, so pages past the length are never read, and
@@ -38,6 +48,7 @@
 //  - q is read through its strides (no copy).
 
 #include "paged_block.cuh"
+#include "paged_decode_tma.cuh"
 
 namespace {
 
@@ -60,14 +71,9 @@ template <typename T, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t kBytes = Layout<T, DH, DH, 1>::kBytes;
   auto* kernel = paged_decode_kernel<T, DH>;
-  static bool configured = false;  // once per instance: above 48 KB of
-  if (!configured) {               // shared memory only when asked for
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kBytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static bool configured = false;  // once per instance
+  const cudaError_t e = allow_smem(kernel, kBytes, configured);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(p.n_splits, p.Hkv, B), 32, kBytes, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_splits == 1) return err;
@@ -76,15 +82,26 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// By dtype and shape alone (ops.decode_tile): bf16 at a page the boxes
+// take and r > 1 runs the decode tile (paged_decode_tma.cuh), else the
+// one-warp split tile
+template <typename T, int DH>
+cudaError_t dispatch_tile(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value)
+    if (decode_tile_takes(p.page, p.r))
+      return paged_tma::launch<DH, true>(p, p.n_blocks, stream);
+  return launch<T, DH>(p, B, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_dh(int dh, const Params& p, int B, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(p, B, stream);
+      return dispatch_tile<T, 64>(p, B, stream);
     case 96:
-      return launch<T, 96>(p, B, stream);
+      return dispatch_tile<T, 96>(p, B, stream);
     case 128:
-      return launch<T, 128>(p, B, stream);
+      return dispatch_tile<T, 128>(p, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -95,18 +112,22 @@ cudaError_t dispatch_dh(int dh, const Params& p, int B, cudaStream_t stream) {
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (tensor cores).  q,
 // kpool, vpool and out share it.  q is (B, Hkv, r, dh) read through its
 // strides (elements; the last dim contiguous), out is (B, Hkv, r, dh)
-// contiguous.  The keys are cut into n_splits spans of span keys (a
-// multiple of 64 covering the table); with n_splits > 1, m_part, l_part
-// (B, Hkv, n_splits, r) and acc_part (.., dh) are fp32 scratch, else
-// unused.  Returns the launches' cudaGetLastError() (0 on success).
+// contiguous.  The split tile: the keys are cut into n_splits spans of
+// span keys (a multiple of 64 covering the table); with n_splits > 1,
+// m_part, l_part (B, Hkv, n_splits, r) and acc_part (.., dh) are fp32
+// scratch, else unused.  The decode tile (bf16 at a page in 8, 16, 32,
+// 64): a grid of n_blocks; m_part, l_part (2 n_blocks, r) and acc_part
+// (.., dh) fp32 scratch, tickets (B, Hkv) int32 zeros, which it leaves
+// zero.  Returns the launches' cudaGetLastError() (0 on success).
 extern "C" int paged_attention(const void* q, const void* kpool,
                                const void* vpool, const void* tables,
                                const void* lengths, void* out, void* m_part,
-                               void* l_part, void* acc_part, int B, int Hkv,
-                               int r, int dh, int page, int max_pages,
-                               int slots, long long sqb, long long sqh,
-                               long long sqr, int n_splits, int span,
-                               float scale, int dtype, void* stream) {
+                               void* l_part, void* acc_part, void* tickets,
+                               int B, int Hkv, int r, int dh, int page,
+                               int max_pages, int slots, long long sqb,
+                               long long sqh, long long sqr, int n_splits,
+                               int span, int n_blocks, float scale,
+                               int dtype, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   if (r < 1 || r > 16 || n_splits < 1 || span < 1 || slots < 1 ||
       span % kSpanAlign != 0 ||
@@ -124,10 +145,12 @@ extern "C" int paged_attention(const void* q, const void* kpool,
   p.m_part = static_cast<float*>(m_part);
   p.l_part = static_cast<float*>(l_part);
   p.acc_part = static_cast<float*>(acc_part);
+  p.tickets = static_cast<int*>(tickets);
   p.sqb = sqb;
   p.sqh = sqh;
   p.sqc = 0;
   p.sqr = sqr;
+  p.B = B;
   p.Hkv = Hkv;
   p.C = 1;
   p.r = r;
@@ -137,6 +160,7 @@ extern "C" int paged_attention(const void* q, const void* kpool,
   p.slots = slots;
   p.n_splits = n_splits;
   p.span = span;
+  p.n_blocks = n_blocks;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

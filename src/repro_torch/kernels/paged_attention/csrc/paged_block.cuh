@@ -1,11 +1,18 @@
-// The paged pool as the shared attention tile (attention_tile.cuh) sees
-// it, for the chunked-prefill kernel (B1, paged_prefill_attention.cu) and
-// the decode kernel (B2, paged_attention.cu): launch parameters, the block
-// view of one (row, kv head), and the merge of split key spans.
+// The paged pool as the chunked-prefill kernel (B1,
+// paged_prefill_attention.cu) and the decode kernel (B2,
+// paged_attention.cu) see it: launch parameters, the block view of one
+// (row, kv head) for the shared attention tile (attention_tile.cuh), the
+// merge of split key spans, and the TMA maps of a layer's pools that both
+// libraries' TMA-fed kernels read (one cache of encoded maps a library).
 
 #pragma once
 
+#include <functional>
+#include <mutex>
+#include <unordered_map>
+
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace paged {
 
@@ -13,6 +20,24 @@ using namespace attention_tile;
 
 constexpr int kSpanAlign = 64;        // a span is whole key tiles of both types
 constexpr int kMergeThreads = 128;
+
+// Whether the page cuts a 64-key tile into boxes of whole 1024-byte
+// swizzle groups (what the TMA-fed kernels take: B1's wgmma path and the
+// decode tile of paged_decode_tma.cuh)
+__host__ __device__ constexpr bool wgmma_page(int page) {
+  return page == 8 || page == 16 || page == 32 || page == 64;
+}
+
+// Whether a bf16 launch of at most 16 folded rows a (row, kv head) runs
+// the decode tile (paged_decode_tma.cuh): at a page the boxes take, with
+// r > 1 query rows a kv head.  MHA (r = 1) keeps the one-warp split tile:
+// a (row, kv head) there carries a row's keys for one query row, so a
+// batch is twice to four times the decode tile's segments for the same
+// bytes, and the split tile measured 11-17 % faster on an H100 at r = 1
+// (dh 64 and 96), against 2-7 % slower at r = 5
+__host__ __device__ constexpr bool decode_tile_takes(int page, int r) {
+  return wgmma_page(page) && r > 1;
+}
 
 struct Params {
   const void* q;                // (B, Hkv, C, r, dh) by the strides below
@@ -24,9 +49,13 @@ struct Params {
   void* out;                    // (B, C, Hkv, r, dh)
   float* m_part;                // (B, Hkv, n_splits, M), log2 units
   float* l_part;                // (B, Hkv, n_splits, M)
-  float* acc_part;              // (B, Hkv, n_splits, M, dh)
+  float* acc_part;              // (B, Hkv, n_splits, M, dh); the decode
+                                // tile: (2 x its grid, M(, dh)) pieces
+  int* tickets;                 // the decode tile: (B, Hkv), zero between
+                                // launches
   long long sqb, sqh, sqc, sqr; // q strides, elements
-  int Hkv, C, r, M, page, max_pages, slots, n_splits, span;
+  int B, Hkv, C, r, M, page, max_pages, slots, n_splits, span;
+  int n_blocks;                 // the decode tile's grid
   float scale_log2;             // log2(e) / sqrt(dh)
 };
 
@@ -117,6 +146,67 @@ __device__ __forceinline__ void merge_spans(const Params& p) {
     }
     blk.out_row(j)[d] = from_float<T>(l > 0.f ? acc / l : 0.f);
   }
+}
+
+// Above 48 KB of dynamic shared memory only when asked for: once per
+// kernel instance (``configured`` its own static)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
+// The tensor maps of one layer's K and V pools, (slots, page, dh) as
+// 4-D (dh, page, slots, 1): boxes of `cols` columns (64 in the 128-byte
+// swizzle, zeros past dh; 32 in the 64-byte swizzle) x one page.  Encoded
+// once per pool view: a map holds only the base, the sizes and the
+// strides, so an entry is right for any pool with its key (a reused
+// address included).
+struct MapKey {
+  const void* k;
+  const void* v;
+  int slots, page, dh, cols;
+  bool operator==(const MapKey& o) const {
+    return k == o.k && v == o.v && slots == o.slots && page == o.page &&
+           dh == o.dh && cols == o.cols;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& m) const {
+    const std::hash<const void*> hp;
+    size_t x = hp(m.k) * 31 + hp(m.v);
+    return (((x * 31 + m.slots) * 31 + m.page) * 31 + m.dh) * 31 + m.cols;
+  }
+};
+struct PoolMaps {
+  CUtensorMap k, v;
+};
+
+// One cache a library (internal linkage: no symbol shared across the
+// libraries a process loads)
+static bool pool_maps(const Params& p, int dh, int cols, PoolMaps* maps) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, PoolMaps, MapKeyHash> cache;
+  const MapKey key{p.kpool, p.vpool, p.slots, p.page, dh, cols};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it == cache.end()) {
+    PoolMaps m;
+    const long long st[3] = {0, static_cast<long long>(p.page) * dh, dh};
+    if (!hopper::bf16_map(&m.k, p.kpool, 1, p.slots, p.page, dh, st, p.page,
+                          cols) ||
+        !hopper::bf16_map(&m.v, p.vpool, 1, p.slots, p.page, dh, st, p.page,
+                          cols))
+      return false;
+    if (cache.size() >= 4096) cache.clear();   // pools come and go
+    it = cache.emplace(key, m).first;
+  }
+  *maps = it->second;
+  return true;
 }
 
 }  // namespace paged

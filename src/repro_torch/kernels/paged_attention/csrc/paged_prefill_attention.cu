@@ -73,6 +73,13 @@
 //    block whose rows see no key (lengths 0) writes its zeros and exits.
 //  - O from registers in (B, C, Hkv, r, dh) order; rows past M unwritten.
 //
+// In bf16 where a (row, kv head) has at most 16 folded rows (every fused
+// step that packs no prefill chunk) at such a page: the decode tile of
+// paged_decode_tma.cuh, which B2 shares (a persistent grid splitting the
+// live 64-key tiles, a TMA producer warp and four mma.sync
+// consumer warps a block, crossing (row, kv head)s merged in the same
+// launch).
+//
 // Elsewhere the shared tile of ../../csrc/attention_tile.cuh (mma.sync in
 // bf16, CUDA-core FMAs in fp32, never TF32; K/V by cp.async into two
 // stages, a key's table entry read per key, so any page size works) over
@@ -82,21 +89,17 @@
 //    the tile's last visible key; within a row the last query tiles launch
 //    first.
 //  - Flash-decoding where a (row, kv head) has one query tile of <= 16 rows
-//    (decode rows): one warp per block and the keys split into spans across
-//    blocks by a plan the wrapper makes from shapes alone (ops.split_plan);
-//    each block writes fp32 (m, l, acc) partials and a second kernel merges
-//    the live spans.  Blocks whose span starts past the last visible key
-//    exit at once; with one live span the merge is exact.
+//    (decode rows in fp32 or at another page): one warp per block and the
+//    keys split into spans across blocks by a plan the wrapper makes from
+//    shapes alone (ops.split_plan); each block writes fp32 (m, l, acc)
+//    partials and a second kernel merges the live spans.  Blocks whose
+//    span starts past the last visible key exit at once; with one live
+//    span the merge is exact.
 //  - q is read through its strides (the model's transposed view needs no
 //    copy); the output is written in (B, C, Hkv, r, dh) order.
 
-#include <functional>
-#include <mutex>
-#include <unordered_map>
-#include <utility>
-
-#include "hopper.cuh"
 #include "paged_block.cuh"
+#include "paged_decode_tma.cuh"
 
 namespace {
 
@@ -118,16 +121,6 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kMergeThreads)
 paged_prefill_merge_kernel(const Params p) {
   merge_spans<T, DH, false>(p);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
-  if (configured) return cudaSuccess;          // above 48 KB of shared
-  const cudaError_t err = cudaFuncSetAttribute(  // memory only when asked
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) configured = true;
-  return err;
 }
 
 template <typename T, int DH, int kWarps>
@@ -156,12 +149,6 @@ constexpr int kBoxRow = 128;            // bytes of a P box row: 64 keys
 constexpr int kBox = kRows * kBoxRow;   // a 64 x 64 bf16 P box
 constexpr int kStages = 4;              // most stages of a ring, P in smem
 constexpr int kPregStages = 6;          // most stages of a ring, P in regs
-
-// Whether the page cuts a 64-key tile into boxes of whole 1024-byte
-// swizzle groups (what the wgmma path takes)
-__host__ __device__ constexpr bool wgmma_page(int page) {
-  return page == 8 || page == 16 || page == 32 || page == 64;
-}
 
 // Consumer groups of a block where M > 64 (P through shared memory)
 template <int DH>
@@ -620,50 +607,6 @@ __global__ void __launch_bounds__(Wg<DH, NWG, PREG, HD>::kThreads, 1)
   }
 }
 
-// The tensor maps of one layer's K and V pools, (slots, page, dh) as
-// 4-D (dh, page, slots, 1): boxes of 64 columns x one page, 128-byte
-// swizzled, zeros past dh.  Encoded once per pool view: a map holds only
-// the base, the sizes and the strides, so an entry is right for any pool
-// with its key (a reused address included).
-struct MapKey {
-  const void* k;
-  const void* v;
-  int slots, page, dh, cols;
-  bool operator==(const MapKey& o) const {
-    return k == o.k && v == o.v && slots == o.slots && page == o.page &&
-           dh == o.dh && cols == o.cols;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& m) const {
-    const std::hash<const void*> hp;
-    size_t x = hp(m.k) * 31 + hp(m.v);
-    return (((x * 31 + m.slots) * 31 + m.page) * 31 + m.dh) * 31 + m.cols;
-  }
-};
-struct PoolMaps {
-  CUtensorMap k, v;
-};
-
-bool pool_maps(const Params& p, int dh, int cols, PoolMaps* maps) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, PoolMaps, MapKeyHash> cache;
-  const MapKey key{p.kpool, p.vpool, p.slots, p.page, dh, cols};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it == cache.end()) {
-    PoolMaps m;
-    const long long st[3] = {0, static_cast<long long>(p.page) * dh, dh};
-    if (!bf16_map(&m.k, p.kpool, 1, p.slots, p.page, dh, st, p.page, cols) ||
-        !bf16_map(&m.v, p.vpool, 1, p.slots, p.page, dh, st, p.page, cols))
-      return false;
-    if (cache.size() >= 4096) cache.clear();   // pools come and go
-    it = cache.emplace(key, m).first;
-  }
-  *maps = it->second;
-  return true;
-}
-
 template <int DH, int NWG, int PREG, int HD>
 cudaError_t launch_groups(const Params& p, int B, cudaStream_t stream) {
   using L = Wg<DH, NWG, PREG, HD>;
@@ -702,13 +645,20 @@ cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   return launch_groups<DH, big_groups<DH>(), 0, 1>(p, B, stream);
 }
 
-// By shape and dtype alone: one warp where a (row, kv head) has a single
-// tile of <= 16 rows; bf16 at a page the boxes take: the wgmma kernel;
-// else the shared tile's 4 warps.
+// By shape and dtype alone (ops.prefill_tile and ops.decode_tile): where
+// a (row, kv head) has <= 16 folded rows, the decode tile in bf16 at a
+// page the boxes take and r > 1, else one warp of the shared tile; past 16
+// rows, the wgmma kernel in bf16 at such a page, else the shared tile's 4
+// warps.
 template <typename T, int DH>
 cudaError_t dispatch_rows(const Params& p, int B, cudaStream_t stream) {
-  if (p.M <= 16) return launch<T, DH, 1>(p, B, stream);
-  if constexpr (std::is_same<T, bf16>::value)
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if (p.M <= 16) {
+    if (kBf16 && decode_tile_takes(p.page, p.r))
+      return paged_tma::launch<DH, false>(p, p.n_blocks, stream);
+    return launch<T, DH, 1>(p, B, stream);
+  }
+  if constexpr (kBf16)
     if (wgmma_page(p.page)) return launch_wgmma<DH>(p, B, stream);
   return launch<T, DH, 4>(p, B, stream);
 }
@@ -731,20 +681,23 @@ cudaError_t dispatch_dh(int dh, const Params& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (tensor cores).  q,
 // kpool, vpool and out share it.  q is read through its strides (elements;
-// the last dim contiguous), out is (B, C, Hkv, r, dh) contiguous.  With
-// n_splits > 1 (only where C * r <= 16) the keys are cut into spans of
-// span keys (a multiple of 64) and m_part, l_part (B, Hkv, n_splits, C * r)
-// and acc_part (.., dh) are fp32 scratch; with n_splits == 1 they are
-// unused and span covers the table.  Returns the launches'
+// the last dim contiguous), out is (B, C, Hkv, r, dh) contiguous.  The
+// shared tile: with n_splits > 1 (only where C * r <= 16) the keys are cut
+// into spans of span keys (a multiple of 64) and m_part, l_part (B, Hkv,
+// n_splits, C * r) and acc_part (.., dh) are fp32 scratch; with n_splits
+// == 1 they are unused and span covers the table.  The decode tile (bf16,
+// C * r <= 16, a page in 8, 16, 32, 64): a grid of n_blocks; m_part,
+// l_part (2 n_blocks, C * r) and acc_part (.., dh) fp32 scratch, tickets
+// (B, Hkv) int32 zeros, which it leaves zero.  Returns the launches'
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for what the
 // kernels do not take, or pool tensor maps cuTensorMapEncodeTiled refuses).
 extern "C" int paged_prefill_attention(
     const void* q, const void* kpool, const void* vpool, const void* tables,
     const void* lengths, const void* starts, void* out, void* m_part,
-    void* l_part, void* acc_part, int B, int Hkv, int C, int r, int dh,
-    int page, int max_pages, int slots, long long sqb, long long sqh,
-    long long sqc, long long sqr, int n_splits, int span, float scale,
-    int dtype, void* stream) {
+    void* l_part, void* acc_part, void* tickets, int B, int Hkv, int C,
+    int r, int dh, int page, int max_pages, int slots, long long sqb,
+    long long sqh, long long sqc, long long sqr, int n_splits, int span,
+    int n_blocks, float scale, int dtype, void* stream) {
   if (B == 0 || Hkv == 0 || C == 0 || r == 0) return 0;
   const int M = C * r;
   if (n_splits < 1 || span < 1 || slots < 1 ||
@@ -761,10 +714,12 @@ extern "C" int paged_prefill_attention(
   p.m_part = static_cast<float*>(m_part);
   p.l_part = static_cast<float*>(l_part);
   p.acc_part = static_cast<float*>(acc_part);
+  p.tickets = static_cast<int*>(tickets);
   p.sqb = sqb;
   p.sqh = sqh;
   p.sqc = sqc;
   p.sqr = sqr;
+  p.B = B;
   p.Hkv = Hkv;
   p.C = C;
   p.r = r;
@@ -774,6 +729,7 @@ extern "C" int paged_prefill_attention(
   p.slots = slots;
   p.n_splits = n_splits;
   p.span = span;
+  p.n_blocks = n_blocks;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -315,8 +315,9 @@ def test_other_pages_take_the_shared_tile(cuda, page):
 
 
 # every prefill tile: the wgmma path (three groups and two heads a block,
-# pages past the table), the shared tile at page 4, the split tile
-# (decode rows) and fp32
+# pages past the table), the shared tile at page 4, the decode tile
+# (decode rows, and three chunk tokens at r = 5), the one-warp split tile
+# at page 4, and fp32
 POISON_CASES = {
     **{name: (torch.bfloat16, WGMMA_SHAPES[name])
        for name in ("mixed_dh128_r5", "mixed_dh96_r1", "mixed_dh96_r5",
@@ -324,6 +325,8 @@ POISON_CASES = {
     "shared_page4": (torch.bfloat16, dict(WGMMA_SHAPES["mixed_dh128_r5"],
                                           page=4, maxp=512)),
     "split_decode": (torch.bfloat16, SHAPES[0]),
+    "tma_c3_r5": (torch.bfloat16, EDGE_SHAPES["r5_c3_split"]),
+    "warp_page4_decode": (torch.bfloat16, dict(SHAPES[0], page=4, maxp=32)),
     "fp32_mixed": (torch.float32, SHAPES[3]),
 }
 
@@ -464,9 +467,15 @@ def test_decode_kernel_edges_match_plain(cuda, name, dtype):
         tables = torch.where(past, torch.where(
             torch.rand(tables.shape, device=cuda) < 0.5, -7,
             k.shape[0] + 5), tables).to(torch.int32)
-    n_splits, _ = ops.split_plan(len(shape["lengths"]), shape["Hkv"], 1,
-                                 shape["r"], shape["maxp"], shape["page"])
-    assert (n_splits == 1) == (name == "unsplit")
+    tile = ops.decode_tile(dtype, shape["page"], shape["r"])
+    # the decode tile in bf16 where a kv head has r > 1 query rows
+    assert tile == ("tma" if dtype == torch.bfloat16 and shape["r"] > 1
+                    else "warp")
+    if tile == "warp":                           # the split plan's spans
+        n_splits, _ = ops.split_plan(len(shape["lengths"]), shape["Hkv"], 1,
+                                     shape["r"], shape["maxp"],
+                                     shape["page"])
+        assert (n_splits == 1) == (name == "unsplit")
     got = ops.paged_attention(q, k, v, tables, lengths)
     torch.cuda.synchronize()
     ref = paged_attention_ref(q, k, v, tables.clamp(0, k.shape[0] - 1),
@@ -476,6 +485,113 @@ def test_decode_kernel_edges_match_plain(cuda, name, dtype):
         err.max().item()
     for b in (lengths == 0).nonzero().flatten().tolist():
         assert torch.all(got[b] == 0)
+
+
+def test_decode_pool_contents_past_the_lengths_do_not_reach_the_output(
+        cuda):
+    """B2 on the decode tile (and on the split tile at r = 1 and at page
+    4): NaN in every pool row past each row's length and in every slot no
+    table names leaves the output the plain version's on finite pools."""
+    for shape in (DECODE_SHAPES[0], DECODE_EDGES["mha_r1_dh96"],
+                  dict(DECODE_SHAPES[2], page=4, maxp=64)):
+        shape = dict(shape)
+        q, k, v, tables, lengths = make_decode(cuda, torch.bfloat16,
+                                               seed=5, **shape)
+        named = torch.zeros(k.shape[0], dtype=torch.bool, device=cuda)
+        named[tables.long().flatten()] = True
+        tables = torch.where(tables == 0, (~named).nonzero()[0, 0].to(
+            torch.int32), tables)
+        starts = torch.zeros_like(lengths)
+        _, kp, vp, *_ = poisoned((q[:, :, None], k, v, tables, lengths,
+                                  starts))
+        got = ops.paged_attention(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(q, k, v, tables, lengths)
+        err = (got.float() - ref.float()).abs()
+        assert (err <= 2e-2 * (1 + ref.float().abs())).all(), \
+            err.max().item()
+        assert torch.isfinite(got).all()
+        assert torch.all(got[lengths == 0] == 0)
+
+
+# the decode tile's work split at the edges of its grid: one long row
+# crossing dozens of blocks, many rows whose (row, kv head)s share blocks,
+# fewer tiles than blocks, every row padded, and a batch of 160 rows (the
+# split scan's rows past 32 at a time)
+TMA_GRIDS = {
+    "one_long_row": dict(Hkv=1, r=5, dh=128, page=16, maxp=512,
+                         lengths=[8000]),
+    "many_short_rows": dict(Hkv=8, r=5, dh=128, page=16, maxp=8,
+                            lengths=[1, 17, 64, 65, 100, 128] * 11),
+    "fewer_tiles_than_blocks": dict(Hkv=2, r=3, dh=64, page=8, maxp=4,
+                                    lengths=[10, 0, 32]),
+    "all_padded": dict(Hkv=4, r=5, dh=96, page=32, maxp=4,
+                       lengths=[0, 0]),
+    "wide_batch": dict(Hkv=2, r=2, dh=64, page=64, maxp=8,
+                       lengths=[(37 * i) % 500 for i in range(160)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TMA_GRIDS))
+def test_decode_tile_grid_edges_match_plain(cuda, name):
+    """B2 and B1's C = 1 launches of the decode tile at the grid's edges,
+    each against the plain version, padded rows exactly 0, and the
+    tickets every launch leaves at 0."""
+    shape = TMA_GRIDS[name]
+    q, k, v, tables, lengths = make_decode(cuda, torch.bfloat16, **shape)
+    got = ops.paged_attention(q, k, v, tables, lengths)
+    chunk = ops.paged_prefill_attention(q[:, :, None], k, v, tables,
+                                        lengths, (lengths - 1).clamp(min=0))
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, k, v, tables, lengths)
+    for out in (got, chunk[:, :, 0]):
+        err = (out.float() - ref.float()).abs()
+        assert (err <= 2e-2 * (1 + ref.float().abs())).all(), \
+            err.max().item()
+        assert torch.all(out[lengths == 0] == 0)
+    assert all(int(t.abs().sum()) == 0 for t in ops._TICKETS.values())
+
+
+def test_decode_tile_repeats_bit_for_bit(cuda):
+    """The merge runs in span order whichever block finishes last, so
+    launches repeat bit for bit (B2, and B1 at C * r <= 16)."""
+    q, k, v, tables, lengths = make_decode(cuda, torch.bfloat16,
+                                           **DECODE_SHAPES[0])
+    first = ops.paged_attention(q, k, v, tables, lengths)
+    args = make(cuda, torch.bfloat16, **EDGE_SHAPES["r5_c3_split"])
+    chunk = ops.paged_prefill_attention(*args)
+    for _ in range(5):
+        assert torch.equal(ops.paged_attention(q, k, v, tables, lengths),
+                           first)
+        assert torch.equal(ops.paged_prefill_attention(*args), chunk)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype, page, r, tile", [
+    (torch.bfloat16, 16, 5, "tma"), (torch.bfloat16, 8, 5, "tma"),
+    (torch.float32, 16, 5, "warp"), (torch.bfloat16, 4, 5, "warp"),
+    (torch.bfloat16, 16, 1, "warp")])
+def test_the_decode_kernel_is_chosen_by_dtype_and_page(cuda, dtype, page,
+                                                        r, tile):
+    """bf16 at a page in WGMMA_PAGES with r > 1 query rows a kv head takes
+    the decode tile; fp32, page 4 and MHA (r = 1) the one-warp split tile,
+    for B2 and for B1's decode rows alike (B1 counts the launch under its
+    tile)."""
+    assert ops.decode_tile(dtype, page, r) == tile
+    assert ops.launch_tile(dtype, 1, r, page) == tile
+    shape = dict(DECODE_SHAPES[0], page=page, maxp=2048 // page, r=r)
+    q, k, v, tables, lengths = make_decode(cuda, dtype, **shape)
+    before = dict(ops.PREFILL_TILE_LAUNCHES)
+    got = ops.paged_attention(q, k, v, tables, lengths)
+    chunk = ops.paged_prefill_attention(q[:, :, None], k, v, tables,
+                                        lengths, (lengths - 1).clamp(min=0))
+    torch.cuda.synchronize()
+    assert ops.PREFILL_TILE_LAUNCHES[tile] == before[tile] + 1
+    ref = paged_attention_ref(q, k, v, tables, lengths)
+    for out in (got, chunk[:, :, 0]):
+        err = (out.float() - ref.float()).abs()
+        assert (err <= TOL[dtype] * (1 + ref.float().abs())).all(), \
+            err.max().item()
 
 
 def test_decode_kernel_reads_q_by_its_strides(cuda):
