@@ -57,10 +57,12 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               fault (a key tile dropped) read in the same run; timed beside
               its bound and SDPA's backward, and each of its three kernels
               (D, dK/dV, dQ) timed alone.
-  4. small:   a reduced fp32 engine on the GPU (kernels) against the same
-              engine on the CPU (plain attention), under the fused step, the
-              split schedule and the three dense mode combinations: identical
-              tokens, and every mode's tokens == the fused step's.  Then the
+  4. small:   a reduced fp32 engine on the GPU (kernels, its paged calls
+              captured: one CUDA graph per bucket shape, replayed) against
+              the same engine on the CPU (plain attention, eager), under the
+              fused step, the split schedule and the three dense mode
+              combinations: identical tokens, and every mode's tokens == the
+              fused step's.  Then the
               reduced dbrx (MoE) the same way under the fused step and the
               split schedule, its row batches past 64 token rows (the capped
               MoE pass, which drops assignments), every MoE call on the GPU
@@ -84,11 +86,25 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               and re-runs two of its calls with plain attention to hold
               their logits against the kernel's (beside two more re-runs:
               P rounded, the noise floor; a page dropped, a fault the
-              limit must catch).  With --profile the steps after the
-              checked ones are traced (device activity only) and their busy
-              and idle shares printed.  Each run logs the pool shards that
-              held pages, each device's most heads after a step and its
-              heads after the run, and the remote pages staged per call.
+              limit must catch).  The paged calls are captured, one CUDA
+              graph per bucket shape (repro_torch.serving.graphs), and
+              replayed; a checked call runs eagerly, and the first replay
+              of each checked kind is held against an eager re-run of the
+              same call from the same pools: logits and written pool
+              memory (the sinks aside) bit for bit.  The graphs stay
+              within the bucket counts; launch counts are exact with the
+              replays.  Then the same requests again with every paged
+              call eager (graphs.disable_capture()): the same tokens, and
+              its call median, host ms a step outside the calls and peak
+              beside the captured run's.  With --profile the steps after
+              the checked ones are traced (device activity only) and their
+              busy and idle shares, device operations and host calls into
+              the CUDA runtime a step printed (the eager run traced whole).
+              Each run logs the pool shards that held pages, each device's
+              most heads after a step and its heads after the run, the
+              remote pages staged per call, the graphs captured against
+              the bucket bound with their warm-up and capture ms, the
+              replays, and the host ms a step outside the model calls.
   6. probe:   phase 5's two runs again on the same weights and requests
               under the per-module probe (EngineConfig(trace_modules=True):
               the traced twins, one device-synchronised span per embed,
@@ -106,12 +122,14 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               grid at dh 128 in bf16 and fp32, with the fit of each.
   7. dense:   the same weights and requests under prefill_mode="dense": one
               serial dense prefill per request (B3 in every layer), then
-              split decode calls through B2.  Exact launch counts, the first
+              split decode calls through B2 (the decode calls captured,
+              the dense prefill calls eager).  Exact launch counts, the first
               prefill call's layer-0 B3 launch against the plain version and
               its logits against a plain-attention re-run (beside a P-rounded
               and a dropped-key-tile re-run).  Dense decode runs only in the
               small phase: it copies every request's dense cache through the
-              host on every step.
+              host on every step.  Then eagerly, as in phase 5 (tokens
+              logged, not gated).
   8. dbrx:    phase 5's engine, requests and gates on dbrx-132b (16 experts,
               top 4) at its published widths and 8 of its 40 layers, under
               the fused step, phase 6's probe on the fused step (the MoE
@@ -119,10 +137,12 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               token-row counts the MoE layer saw are logged, and with
               --profile the MoE layer's share of device busy time (marker
               kernels around each call bound it in the trace; the probe
-              runs are not traced).
+              runs are not traced); the MoE calls counted with the replays
+              (the MoE layers x the model calls); each captured run then
+              eagerly, as in phase 5 (tokens logged, not gated).
   9. dense configs: phase 5's fused run on qwen1.5-0.5b, phi3-mini-3.8b and
               minitron-8b at full width and depth, and on qwen1.5-0.5b with
-              fp8 (e4m3) KV pools.
+              fp8 (e4m3) KV pools, each captured and then eagerly.
  10. families: the model families the engine does not serve, through the
               model functions at their published widths with seeded bf16
               weights, one after another: hymba-1.5b (32 layers; 4
@@ -165,8 +185,8 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               plan's primary workers and attention pool as the engine's
               roles (12 pool shards on this card, 11 of them remote to
               the anchor, staged through the exchange), under the fused
-              step and the split schedule, with phase 5's gates and
-              logs, and more than two shards must hold pages; the
+              step and the split schedule, captured, with phase 5's gates
+              and logs, and more than two shards must hold pages; the
               elastic controller fails the anchor primary (the new plan
               must leave it out) and rejoins it (the primary count must
               come back); the three simulated systems (Hetis, HexGen,
@@ -1146,20 +1166,23 @@ MARKER = "spin_kernel"                     # torch.cuda._sleep's kernel
 
 class MoeWatch:
     """Wraps the model's MoE layer (``mlp.moe_apply``) while a phase runs:
-    ``calls`` gathers the token-row count T of every call.  ``no_sync``
-    runs each call on a CUDA tensor under
+    ``calls`` counts the calls by their token-row count T (T: calls).  It
+    is one of ``graphs.TALLIES`` while the watch is on, so a captured
+    step's MoE calls count on each of its replays and not at its capture.
+    ``no_sync`` runs each call on a CUDA tensor under
     ``torch.cuda.set_sync_debug_mode("error")``; ``markers`` launches a
     marker kernel before and after each call, so the profiler's trace can
     bound the layer's device work (``marked_device_us``)."""
 
     def __init__(self, no_sync=False, markers=False):
         from repro_torch.models import mlp
-        self.mlp, self.fn = mlp, mlp.moe_apply
+        from repro_torch.serving import graphs
+        self.mlp, self.fn, self.graphs = mlp, mlp.moe_apply, graphs
         self.no_sync, self.markers = no_sync, markers
-        self.calls = []
+        self.calls = collections.Counter()
 
     def _call(self, cfg, p, x):
-        self.calls.append(x.shape[0] * x.shape[1])
+        self.calls[x.shape[0] * x.shape[1]] += 1
         if self.markers:
             torch.cuda._sleep(0)
         if self.no_sync and x.is_cuda:
@@ -1176,15 +1199,21 @@ class MoeWatch:
 
     def __enter__(self):
         self.mlp.moe_apply = self._call
+        self.graphs.TALLIES.append(self.calls)
         return self
 
     def __exit__(self, *exc):
         self.mlp.moe_apply = self.fn
+        self.graphs.TALLIES.remove(self.calls)
+
+    def total(self):
+        return sum(self.calls.values())
 
     def summary(self):
-        """(sorted distinct T, calls over 64 token rows: the capped pass)."""
-        return (sorted(collections.Counter(self.calls).items()),
-                sum(T > 64 for T in self.calls))
+        """(sorted (T, calls), calls over 64 token rows: the capped
+        pass)."""
+        return (sorted(self.calls.items()),
+                sum(n for T, n in self.calls.items() if T > 64))
 
 
 def marked_device_us(prof):
@@ -1250,7 +1279,8 @@ def small_engine(cfg, cpu_params, device, modes):
             max_new_tokens=8))
     with MoeWatch(no_sync=True) as moe:
         assert eng.run_until_drained(500)
-    return {r.rid: r.output for r in eng.finished}, moe.calls
+    return {r.rid: r.output for r in eng.finished}, moe.calls, \
+        graph_stats(eng)
 
 
 def small_engine_phase(dev):
@@ -1266,15 +1296,18 @@ def small_engine_phase(dev):
     cpu_params = init_params(cfg, 0, device="cpu")
     outs = {}
     for mode, modes in SMALL_MODES.items():
-        for device in ("cpu", dev):
-            outs[mode, str(device)] = small_engine(cfg, cpu_params, device,
-                                                   modes)[0]
+        outs[mode, "cpu"] = small_engine(cfg, cpu_params, "cpu", modes)[0]
+        outs[mode, str(dev)], _, stats = small_engine(cfg, cpu_params, dev,
+                                                      modes)
         if outs[mode, "cpu"] != outs[mode, str(dev)]:
             raise AssertionError(
                 f"small engine ({mode}): GPU tokens {outs[mode, str(dev)]} "
                 f"!= CPU tokens {outs[mode, 'cpu']}")
         log(f"small engine ({mode}): 6 requests, GPU == CPU token streams "
-            f"({sum(len(v) for v in outs[mode, 'cpu'].values())} tokens)")
+            f"({sum(len(v) for v in outs[mode, 'cpu'].values())} tokens); "
+            f"captured paged calls on the GPU " + (", ".join(
+                f"{k} {v['graphs']} graphs, {v['replays']} replays"
+                for k, v in stats.items()) or "none (dense modes)"))
     for mode in SMALL_MODES:
         if outs[mode, "cpu"] != outs["fused", "cpu"]:
             raise AssertionError(f"small engine: {mode} tokens != fused "
@@ -1285,17 +1318,18 @@ def small_engine_phase(dev):
     cpu_params = init_params(cfg, 0, device="cpu")
     for mode in ("fused", "split"):
         modes = SMALL_MODES[mode]
-        want, _ = small_engine(cfg, cpu_params, "cpu", modes)
-        got, calls = small_engine(cfg, cpu_params, dev, modes)
+        want, _, _ = small_engine(cfg, cpu_params, "cpu", modes)
+        got, calls, _ = small_engine(cfg, cpu_params, dev, modes)
         if got != want:
             raise AssertionError(f"small dbrx ({mode}): GPU tokens {got} != "
                                  f"CPU tokens {want}")
-        capped = sum(T > 64 for T in calls)
-        assert capped > 0, sorted(set(calls))
+        capped = sum(n for T, n in calls.items() if T > 64)
+        assert capped > 0, sorted(calls)
         log(f"small dbrx ({mode}): 6 requests, GPU == CPU token streams "
             f"({sum(len(v) for v in want.values())} tokens); MoE calls on "
-            f"the GPU {len(calls)}, {capped} of them capped (T > 64; T seen "
-            f"{sorted(set(calls))}), none synchronised with the host")
+            f"the GPU {sum(calls.values())} (replays of captured steps "
+            f"included), {capped} of them capped (T > 64; T seen "
+            f"{sorted(calls)}), none synchronised with the host")
 
 
 # the reduced families at head dims the flash kernel is built for
@@ -1454,6 +1488,58 @@ def submit_requests(eng, cfg, seed):
     return n_req, new_tokens, prompt_lens
 
 
+class Intercepted:
+    """``hook`` in place of a captured wrapper's calls; every other
+    attribute is the wrapper's (``replays``, ``entries``, ...)."""
+
+    def __init__(self, wrapper, hook):
+        self.wrapper, self.hook = wrapper, hook
+
+    def __call__(self, *args):
+        return self.hook(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.wrapper, name)
+
+
+def graph_stats(eng):
+    """The engine's captured paged calls, per kind: graphs captured,
+    distinct shapes seen (a shape only a checked, eager call saw has no
+    graph), the bucket bound, replays, and the first calls' warm-up and
+    capture ms summed."""
+    out = {}
+    for name, fn, bound in (
+            ("fused", eng._fused_fn, eng.fused_bucket_count()),
+            ("prefill", eng._chunk_fn, eng.prefill_bucket_count()),
+            ("decode", eng._paged_fn, eng.bucket_count())):
+        if fn._cache_size():
+            out[name] = dict(
+                graphs=len(fn.entries), shapes=fn._cache_size(),
+                bound=bound, replays=fn.replays,
+                warmup_ms=1e3 * sum(w for w, _ in fn.capture_s),
+                capture_ms=1e3 * sum(c for _, c in fn.capture_s))
+    return out
+
+
+def outside_ms(eng, skip=()):
+    """Per step, in ms: the step span's wall less its model-call spans'
+    (admission, the step plan, packing, sampling, the dispatcher: the
+    host's work around the calls); steps holding a call of ``skip``
+    ((span name, index): the checked calls) are left out."""
+    calls, seen = [], collections.Counter()
+    for sp in eng.tracer.spans(track="main"):
+        if sp.name in CALLS or sp.name == "prefill":
+            calls.append((sp.ts, sp.dur, (sp.name, seen[sp.name])))
+            seen[sp.name] += 1
+    out = []
+    for st in eng.tracer.spans("step"):
+        inner = [(d, k) for ts, d, k in calls
+                 if st.ts <= ts < st.ts + st.dur]
+        if inner and not any(k in skip for _, k in inner):
+            out.append((st.dur - sum(d for d, _ in inner)) * 1e3)
+    return out
+
+
 def span_ms(eng, name, skip=()):
     """(durations, median, p90) in ms of the tracer's ``name`` spans, less
     the calls in ``skip`` (the checked ones)."""
@@ -1474,7 +1560,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serving import EngineConfig, InferenceEngine
+    from repro_torch.serving import EngineConfig, InferenceEngine, graphs
 
     planned = cluster is not None
     cluster = cluster or ClusterSpec.build([("A100", 1), ("3090", 1)])
@@ -1507,6 +1593,11 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     checked_calls = set()                  # their call times are left out
     check_s = [0.0]                        # wall seconds the checks add
     kernel_fn = getattr(ops, kernel)
+    # the paged calls are captured (one graph per shape, replayed) unless
+    # the probe runs them through their traced twins; the first replay of
+    # each kind is then held against an eager re-run of the same call
+    captured = not probe
+    replay_checks = {}
     if probe:
         # the engine calls the traced twin from the transformer module
         traced_fn = getattr(T, traced)
@@ -1520,12 +1611,18 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
                 lambda _c, p, kps, vps, _a, _s, *idx, **kw:
                 fn(p, kps, vps, *idx, **kw)))
     else:
-        call_fn = getattr(eng, wrapped).fn
+        # the engine's captured wrapper, which takes the host arrays
+        call_fn = wrapper = getattr(eng, wrapped)
 
         def install(fn):
-            getattr(eng, wrapped).fn = fn
+            setattr(eng, wrapped,
+                    wrapper if fn is call_fn else Intercepted(wrapper, fn))
 
     anchor = eng.kv.anchor
+
+    def on_device(idx):
+        return tuple(torch.from_numpy(a).to(dev)
+                     if isinstance(a, np.ndarray) else a for a in idx)
 
     def written(kps, vps, idx):
         """Copies of the pool memory a call can write: the anchor's pools
@@ -1549,6 +1646,21 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
             kps[d][:, s] = k
             vps[d][:, s] = v
 
+    def differ(kps, vps, saved):
+        """Elements of the pool memory ``saved`` (``written``) whose bits
+        the pools no longer hold, each pool's sink slot aside: padded
+        rows' duplicate writes race there, and no length reaches it."""
+        n = 0
+        for d, (s, k, v) in saved.items():
+            sink = eng.kv.sink if d == anchor else kps[d].shape[1] - 1
+            for pool, old in ((kps[d], k), (vps[d], v)):
+                for layer in range(pool.shape[0]):
+                    now = pool[layer][s]
+                    keep = (torch.arange(now.shape[0], device=now.device)
+                            if isinstance(s, slice) else s) != sink
+                    n += int((now[keep] != old[layer][keep]).sum())
+        return n
+
     def rerun(p, kps, vps, before, idx, attn_fn):
         """The call's logits re-run with ``attn_fn`` in place of the
         kernel from the pools as they were before the call: the memory
@@ -1568,15 +1680,69 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     def rel_l2(a, b):
         return float((a - b).norm() / b.norm())
 
+    def replay_check(kinds, p, kps, vps, idx):
+        """Serve a call that replays its shape's graph, then re-run it
+        eagerly from the pools as they were before it: the logits and the
+        pool memory it wrote must have the same bits."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        didx = on_device(idx)
+        before = written(kps, vps, didx)
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t
+        n_replays = wrapper.replays
+        out = wrapper(p, kps, vps, *idx)
+        assert wrapper.replays == n_replays + 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = out[0].clone()
+        after = written(kps, vps, didx)
+        marks = [(c, dict(c)) for c in graphs.TALLIES]
+        put(kps, vps, before)
+        want = wrapper.fn(p, kps, vps, *didx)[0]   # eager, not served
+        for c, m in marks:
+            c.clear()
+            c.update(m)
+        res = dict(logits_differ=int((got != want).sum()),
+                   logits_max_abs=float((got - want).abs().max()),
+                   pool_elems_differ=differ(kps, vps, after),
+                   shape=list(got.shape), rows=rows_of(idx, mode))
+        put(kps, vps, after)
+        for k in kinds:
+            replay_checks[k] = res
+        checked_calls.add(eng.tracer.count(span))
+        del before, after, got, want
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t
+        return out
+
+    replayed = []                          # per call: whether it replayed
+
     def checked(p, kps, vps, *idx, **kw):
-        if set(checks) == want_kinds[mode]:
+        if not captured:
+            return checked_call(p, kps, vps, *idx, **kw)
+        n = wrapper.replays
+        out = checked_call(p, kps, vps, *idx, **kw)
+        replayed.append(wrapper.replays > n)
+        return out
+
+    def checked_call(p, kps, vps, *idx, **kw):
+        if set(checks) == want_kinds[mode] and (
+                not captured or set(replay_checks) == want_kinds[mode]):
             return call_fn(p, kps, vps, *idx, **kw)
-        kinds = [k for k in kinds_of(idx) if k not in checks]
-        if not kinds:
+        kinds = kinds_of(idx)
+        new = [k for k in kinds if k not in checks]
+        if not new:
+            again = [k for k in kinds if k not in replay_checks]
+            if captured and again and wrapper.replays_call(p, kps, vps,
+                                                           *idx):
+                return replay_check(again, p, kps, vps, idx)
             return call_fn(p, kps, vps, *idx, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        before = written(kps, vps, idx)
+        didx = on_device(idx)
+        before = written(kps, vps, didx)
         torch.cuda.synchronize()
         check_s[0] += time.perf_counter() - t
         layer0 = []                        # layer 0's inputs and output
@@ -1589,26 +1755,29 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
                 layer0.append(list(a) + [o])
             return o
 
+        # a checked call runs eagerly: it is never captured
         setattr(ops, kernel, capture)
         try:
-            out = call_fn(p, kps, vps, *idx, **kw)
+            with graphs.disable_capture():
+                out = call_fn(p, kps, vps, *idx, **kw)
         finally:
             setattr(ops, kernel, kernel_fn)
         torch.cuda.synchronize()
         t = time.perf_counter()
         launches = dict(ops.LAUNCHES)
-        n_moe = len(moe.calls)             # the re-runs' MoE calls: not served
+        n_moe = dict(moe.calls)            # the re-runs' MoE calls: not served
         # the main path's own layer-0 launch against the plain version on
         # the same inputs: no amplification through later layers
         *a0, o0 = layer0[0]
         r0 = plain()(*a0).float()
         e0 = (o0.float() - r0).abs()
         logits, kps, vps = out
-        ref = rerun(p, kps, vps, before, idx, plain())
-        floor = rerun(p, kps, vps, before, idx, plain(round_p=True))
-        fault = rerun(p, kps, vps, before, idx, plain(wrong_page=True))
+        ref = rerun(p, kps, vps, before, didx, plain())
+        floor = rerun(p, kps, vps, before, didx, plain(round_p=True))
+        fault = rerun(p, kps, vps, before, didx, plain(wrong_page=True))
         assert ops.LAUNCHES == launches
-        del moe.calls[n_moe:]
+        moe.calls.clear()
+        moe.calls.update(n_moe)
         n_dec, n_pre, lanes = rows_of(idx, mode)
         res = dict(rel_l2=rel_l2(logits, ref),
                    floor_rel_l2=rel_l2(floor, ref),
@@ -1622,7 +1791,7 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
                    layer0_max_abs=float(e0.max()),
                    layer0_ok=bool((e0 <= TOL["bfloat16"]
                                    * (1 + r0.abs())).all()))
-        for k in kinds:
+        for k in new:
             checks[k] = res
         checked_calls.add(eng.tracer.count(span))
         del before, ref, floor, fault, layer0, a0, o0, r0, e0
@@ -1680,13 +1849,17 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
         ops.PREFILL_TILE_LAUNCHES[k] = 0
     t0 = time.perf_counter()
     with moe:
-        # the checked calls come early; the window after them is all
-        # plain serving, and --profile traces exactly that window
-        while len(checks) < 2 and (eng.queue or eng.running
-                                   or eng.prefilling):
+        # the checked calls (and the replays held against eager re-runs)
+        # come early; the window after them is all plain serving, and
+        # --profile traces exactly that window
+        while (len(checks) < 2 or captured and len(replay_checks) < 2) \
+                and (eng.queue or eng.running or eng.prefilling):
             eng.step()
         torch.cuda.synchronize()
         win_step0 = int(eng.metrics["steps"])
+        # the window's own peak: no check's pool copies in it
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
         with prof:
             tw = time.perf_counter()
             drained = eng.run_until_drained(5000)
@@ -1700,7 +1873,15 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     # the layer-0 plain call and the plain re-runs); every step's tokens
     # stay counted
     wall = time.perf_counter() - t0 - check_s[0]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    window_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(peak_gb, window_peak_gb)
+    stats = graph_stats(eng)
+    host_ms = outside_ms(eng, {(span, i) for i in checked_calls})
+    # the checked kind's calls that replayed a graph (no first call of a
+    # shape: its warm-up and capture are in its span)
+    replay_ms = [sp.dur * 1e3 for i, sp in enumerate(eng.tracer.spans(span))
+                 if i < len(replayed) and replayed[i]
+                 and i not in checked_calls]
 
     steps = int(eng.metrics["steps"])
     gen = n_req * new_tokens
@@ -1716,8 +1897,13 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     out = dict(config=cfg.name, layers=cfg.n_layers,
                kv_dtype=cfg.kv_dtype, mode=mode, launches=launches,
                b1_tiles=b1_tiles, steps=steps, wall_s=wall,
-               moe_calls=len(moe.calls), moe_T=moe_T,
-               moe_capped_calls=moe_capped,
+               moe_calls=moe.total(), moe_T=moe_T,
+               moe_capped_calls=moe_capped, graphs=stats,
+               window_peak_gb=window_peak_gb, replay_ms=replay_ms,
+               replay_ms_median=(statistics.median(replay_ms) if replay_ms
+                                 else None),
+               replay_checks=replay_checks, host_ms=host_ms,
+               host_ms_median=statistics.median(host_ms),
                check_s=check_s[0], tokens_per_s=gen / wall,
                tokens_per_s_with_prompts=(gen + n_prompt) / wall,
                checks=checks, peak_gb=peak_gb, window_steps=[
@@ -1744,8 +1930,34 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
         f"{statistics.median(n_staged):g} max {max(n_staged)}, from up to "
         f"{out['staged_shards_max']} shards")
     if moe.calls:
-        log(f"engine ({tag}): MoE calls {len(moe.calls)}, {moe_capped} "
+        log(f"engine ({tag}): MoE calls {moe.total()} (replays included) "
+            f"== {cfg.n_layers - cfg.first_dense_layers} MoE layers x "
+            f"{int(eng.metrics['model_calls'])} model calls, {moe_capped} "
             f"capped (T > 64); token rows T seen (T: calls) {moe_T}")
+        assert moe.total() == (cfg.n_layers - cfg.first_dense_layers) \
+            * eng.metrics["model_calls"], (moe.total(), moe_T)
+    log(f"engine ({tag}): host ms a step outside the model calls median "
+        f"{statistics.median(host_ms):.2f} p90 "
+        f"{sorted(host_ms)[int(0.9 * len(host_ms))]:.2f} over "
+        f"{len(host_ms)} steps (admission, step plan, packing, sampling, "
+        f"dispatcher)")
+    if captured:
+        log(f"engine ({tag}): {span} ms median over the calls that "
+            f"replayed a graph {statistics.median(replay_ms):.2f} ("
+            f"{len(replay_ms)} calls; the first call of a shape holds its "
+            f"warm-up and capture); peak memory after the checks "
+            f"{window_peak_gb:.1f} GB")
+        log(f"engine ({tag}): captured paged calls " + "; ".join(
+            f"{k}: {v['graphs']} graphs of {v['shapes']} shapes seen "
+            f"(bound {v['bound']}), {v['replays']} replays, first calls' "
+            f"warm-up {v['warmup_ms']:.0f} ms + capture "
+            f"{v['capture_ms']:.0f} ms" for k, v in stats.items()))
+        for kind, res in replay_checks.items():
+            log(f"engine ({tag}): {kind} call's first replay (rows "
+                f"{res['rows']}) vs an eager re-run from the same pools: "
+                f"{res['logits_differ']} of {math.prod(res['shape'])} "
+                f"logits and {res['pool_elems_differ']} written pool "
+                f"elements differ (max abs {res['logits_max_abs']:.3g})")
     if mode == "fused":
         durs, med, p90 = span_ms(eng, "fused_step", checked_calls)
         args = [sp.args for sp in eng.tracer.spans("fused_step")]
@@ -1828,6 +2040,15 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     eng.kv.check_invariants()
     assert set(checks) == want_kinds[mode], \
         f"calls checked against the plain re-run: {sorted(checks)}"
+    if captured:
+        assert set(replay_checks) == want_kinds[mode], \
+            f"replays held against an eager re-run: {sorted(replay_checks)}"
+        for kind, res in replay_checks.items():
+            assert res["logits_differ"] == res["pool_elems_differ"] == 0, \
+                (kind, res)
+        for kind, v in stats.items():
+            assert 0 < v["graphs"] <= v["shapes"] <= v["bound"], (kind, v)
+        assert getattr(eng, wrapped).replays > 0, stats
     for kind, res in checks.items():
         if not (res["finite"] and res["layer0_ok"]
                 and res["rel_l2"] <= LOGITS_LIMIT):
@@ -1842,6 +2063,77 @@ def engine_phase(dev, profile, cfg, params, mode, seed=0, probe=False,
     if probe:
         out.update(probe_summary(eng, tag, mode, checked_calls, loaded,
                                  ratios))
+    return out
+
+
+def eager_phase(dev, profile, cfg, params, base, gate=False, **modes):
+    """The engine phases' requests again on the same weights with every
+    paged call eager (``graphs.disable_capture()``) and no check: its call
+    median, host ms a step outside the calls, tokens/s and peak beside the
+    captured run ``base``'s, and (``--profile``) its device busy time over
+    the whole run.  Its tokens against ``base``'s: with ``gate`` they must
+    be equal.  ``modes``: the EngineConfig's mode fields."""
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.serving import EngineConfig, InferenceEngine, graphs
+    eng = InferenceEngine(
+        cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
+                                prefill_chunk=64, telemetry=True, **modes),
+        device=dev)
+    n_req, new_tokens, _ = submit_requests(eng, cfg, 0)
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+    else:
+        prof = contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with graphs.disable_capture(), MoeWatch(markers=profile) as moe, prof:
+        drained = eng.run_until_drained(5000)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert drained and len(eng.finished) == n_req, "not every request done"
+    assert not any(f.entries for f in (eng._fused_fn, eng._chunk_fn,
+                                       eng._paged_fn))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = {r.rid: r.output for r in eng.finished}
+    same = sum(a == b for rid, toks in base["tokens"].items()
+               for a, b in zip(toks, tokens[rid]))
+    total = sum(len(t) for t in base["tokens"].values())
+    steps = int(eng.metrics["steps"])
+    span = "fused_step" if eng.use_fused else "paged_decode"
+    _, med, p90 = span_ms(eng, span)
+    host_ms = outside_ms(eng)
+    tag = f"{cfg.name} {cfg.n_layers}L, {cfg.kv_dtype} pools, " + (
+        "fused" if eng.use_fused else "split") + (
+        ", dense prefill" if not eng.use_paged_prefill else "")
+    key = "step_ms_median" if eng.use_fused else "decode_ms_median"
+    replay = (f", {base['replay_ms_median']:.2f} over its replays"
+              if base.get("replay_ms_median") else "")
+    log(f"eager ({tag}): every paged call eager: {span} ms median "
+        f"{med:.2f} p90 {p90:.2f} against {base[key]:.2f} captured"
+        f"{replay}; host ms a step outside the calls "
+        f"median {statistics.median(host_ms):.2f} (captured "
+        f"{base['host_ms_median']:.2f}); {n_req * new_tokens / wall:.2f} "
+        f"generated tokens/s in {wall:.2f} s wall, {steps} steps (captured "
+        f"{base['tokens_per_s']:.2f}, checks left out); peak memory "
+        f"{peak_gb:.1f} GB (captured "
+        f"{base.get('window_peak_gb', base['peak_gb']):.1f} after its "
+        f"checks); tokens agree "
+        f"with the captured run at {same} of {total} positions")
+    out = dict(call_ms_median=med, call_ms_p90=p90, host_ms=host_ms,
+               host_ms_median=statistics.median(host_ms), wall_s=wall,
+               steps=steps, tokens_per_s=n_req * new_tokens / wall,
+               peak_gb=peak_gb, token_agreement=[same, total],
+               moe_calls=moe.total())
+    if gate:
+        assert tokens == base["tokens"], \
+            f"eager tokens != captured tokens ({same} of {total} agree)"
+    if profile:
+        out.update(profile_summary(prof, steps, 0, steps, wall,
+                                   tag + ", eager", moe=bool(moe.calls)))
     return out
 
 
@@ -2086,6 +2378,8 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
     eng._prefill_fn.fn = call_fn
     wall = time.perf_counter() - t0 - check_s[0]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = graph_stats(eng)
+    host_ms = outside_ms(eng, {("prefill", 0)})
     steps = int(eng.metrics["steps"])
     gen = n_req * new_tokens
     n_prompt = int(prompt_lens.sum())
@@ -2100,7 +2394,8 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
                prefill_calls=n_pre, decode_calls=n_dec,
                prefill_ms_median=pmed, prefill_ms_p90=pp90,
                decode_ms_median=dmed, decode_ms_p90=dp90,
-               prefill_ms=pdurs, decode_ms=ddurs,
+               prefill_ms=pdurs, decode_ms=ddurs, graphs=stats,
+               host_ms=host_ms, host_ms_median=statistics.median(host_ms),
                tokens={r.rid: r.output for r in eng.finished})
     log(f"engine (dense prefill): {n_req} requests, prompts {n_prompt} "
         f"tokens, generated {gen}; {steps} steps, {n_pre} prefill + {n_dec} "
@@ -2111,6 +2406,14 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
     log(f"engine (dense prefill): prefill-call ms median {pmed:.2f} p90 "
         f"{pp90:.2f} (the checked first call left out); decode-call ms "
         f"median {dmed:.2f} p90 {dp90:.2f}")
+    log(f"engine (dense prefill): host ms a step outside the model calls "
+        f"median {statistics.median(host_ms):.2f}; captured decode calls: "
+        f"{stats['decode']['graphs']} graphs of {stats['decode']['shapes']} "
+        f"shapes (bound {stats['decode']['bound']}), "
+        f"{stats['decode']['replays']} replays, warm-up "
+        f"{stats['decode']['warmup_ms']:.0f} ms + capture "
+        f"{stats['decode']['capture_ms']:.0f} ms; the dense prefill calls "
+        f"eager")
     log(f"engine (dense prefill): kernel launches B3 {launches[NAMES['B3']]}"
         f" == {cfg.n_layers} layers x {n_pre} prefill calls, B2 "
         f"{launches[NAMES['B2']]} == {cfg.n_layers} layers x {n_dec} decode "
@@ -2134,6 +2437,8 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
     assert launches[NAMES["B3"]] == cfg.n_layers * n_pre, launches
     assert launches[NAMES["B2"]] == cfg.n_layers * n_dec > 0, launches
     assert launches[NAMES["B1"]] == 0, launches
+    assert set(stats) == {"decode"} and stats["decode"]["replays"] > 0 \
+        and 0 < stats["decode"]["graphs"] <= stats["decode"]["bound"], stats
     if not (check["finite"] and check["layer0_ok"]
             and check["rel_l2"] <= LOGITS_LIMIT):
         raise AssertionError(f"prefill call logits disagree with the plain "
@@ -2159,6 +2464,12 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
     assert events, "the profiler recorded no device activity"
     dev_us = sum(us for _, us in events)
     n_ops = sum(e.count for e in avg if e.self_device_time_total > 0)
+    # the host's calls into CUDA (cuda* and cu* entry points: launches,
+    # graph launches, copies, syncs): events without device time
+    host_calls = {e.key: e.count for e in avg
+                  if e.self_device_time_total == 0
+                  and e.key.startswith(("cuda", "cu"))}
+    n_host = sum(host_calls.values())
     b1_us = sum(us for k, us in events if "paged_prefill_" in k)
     b2_us = sum(us for k, us in events if "paged_decode_" in k)
     # B3's forward: the bf16 wgmma kernel or the fp32 tile
@@ -2175,9 +2486,17 @@ def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
         f"busy time), B2 {b2_us / 1e3 / n_win:.2f} ms per step "
         f"({b2_us / dev_us:.3f}), B3 {b3_us / 1e3 / n_win:.2f} ms per step "
         f"({b3_us / dev_us:.3f})")
+    log(f"profile ({mode}): {n_ops / n_win:.0f} device operations "
+        f"(kernels, copies, memsets) and "
+        + (f"{n_host / n_win:.0f} host calls into the CUDA runtime a step "
+           f"(most: " + ", ".join(f"{k} {n / n_win:.1f}" for k, n in sorted(
+               host_calls.items(), key=lambda kv: -kv[1])[:6]) + ")"
+           if n_host else "host calls a step not measured (the trace holds "
+           "no runtime events)"))
     for k, us in sorted(events, key=lambda e: -e[1])[:15]:
         log(f"profile ({mode}): {us / 1e3:10.2f} ms  {k[:100]}")
     out = dict(profile_busy_us=dev_us, profile_ops=n_ops,
+               profile_host_calls=n_host, profile_host_call_kinds=host_calls,
                profile_b1_us=b1_us,
                profile_b2_us=b2_us, profile_b3_us=b3_us,
                profile_events=dict(events))
@@ -3545,15 +3864,26 @@ def main(argv=None) -> int:
     # the engine phases serve the same weights; each engine's pools are
     # freed before the next engine allocates its own
     cfg, params = full_width_params(dev, "qwen3-14b")
+    # each captured engine run, then the same requests with every paged
+    # call eager (phase 5: the same tokens, or the run fails)
+    eager = {}
     fused = engine_phase(dev, args.profile, cfg, params, "fused")
     free("the fused engine and its pools")
+    eager["qwen3-14b fused"] = eager_phase(dev, args.profile, cfg, params,
+                                           fused, gate=True,
+                                           step_mode="fused")
+    free("the eager fused engine and its pools")
     split = engine_phase(dev, args.profile, cfg, params, "split")
+    free("the split engine and its pools")
+    eager["qwen3-14b split"] = eager_phase(dev, args.profile, cfg, params,
+                                           split, gate=True,
+                                           step_mode="split")
     same = sum(a == b for rid, toks in fused["tokens"].items()
                for a, b in zip(toks, split["tokens"][rid]))
     total = sum(len(t) for t in fused["tokens"].values())
     log(f"engine: split vs fused tokens agree at {same} of {total} "
         f"positions (bf16; B2 and B1 round differently)")
-    free("the split engine and its pools")
+    free("the eager split engine and its pools")
     probe = {"fused": probe_phase(dev, cfg, params, "fused", fused)}
     free("the probed fused engine and its pools")
     probe["split"] = probe_phase(dev, cfg, params, "split", split)
@@ -3565,6 +3895,9 @@ def main(argv=None) -> int:
     log(f"engine: dense-prefill vs split tokens agree at {same_dense} of "
         f"{total} positions (bf16; B3 and B1 round differently)")
     free("the dense-prefill engine")
+    eager["qwen3-14b dense prefill"] = eager_phase(
+        dev, args.profile, cfg, params, dense, prefill_mode="dense")
+    free("the eager dense-prefill engine")
     # phase 12 on the same weights: the planned roles
     plan = plan_phase(dev, args.profile, cfg, params)
     del params
@@ -3575,11 +3908,17 @@ def main(argv=None) -> int:
     cfg, params = full_width_params(dev, "dbrx-132b", DBRX_LAYERS)
     dbrx = {"fused": engine_phase(dev, args.profile, cfg, params, "fused")}
     free("the fused engine and its pools")
+    eager["dbrx-132b fused"] = eager_phase(dev, args.profile, cfg, params,
+                                           dbrx["fused"], step_mode="fused")
+    free("the eager fused engine and its pools")
     # the probe's mlp spans around MoE layers
     probe["dbrx fused"] = probe_phase(dev, cfg, params, "fused",
                                       dbrx["fused"])
     free("the probed fused engine and its pools")
     dbrx["split"] = engine_phase(dev, args.profile, cfg, params, "split")
+    free("the split engine and its pools")
+    eager["dbrx-132b split"] = eager_phase(dev, args.profile, cfg, params,
+                                           dbrx["split"], step_mode="split")
     same_dbrx = sum(a == b for rid, toks in dbrx["fused"]["tokens"].items()
                     for a, b in zip(toks, dbrx["split"]["tokens"][rid]))
     log(f"engine: dbrx split vs fused tokens agree at {same_dbrx} of "
@@ -3595,11 +3934,18 @@ def main(argv=None) -> int:
         cfg, params = full_width_params(dev, name)
         dense_cfgs[name] = engine_phase(dev, args.profile, cfg, params,
                                         "fused")
+        free("the engine and its pools")
+        eager[name] = eager_phase(dev, args.profile, cfg, params,
+                                  dense_cfgs[name], step_mode="fused")
         if name == "qwen1.5-0.5b":
-            free("the engine and its pools")
+            free("the eager engine and its pools")
             fp8 = dataclasses.replace(cfg, kv_cache_dtype="float8_e4m3fn")
             dense_cfgs[name + " fp8"] = engine_phase(dev, args.profile, fp8,
                                                      params, "fused")
+            free("the engine and its pools")
+            eager[name + " fp8"] = eager_phase(
+                dev, args.profile, fp8, params, dense_cfgs[name + " fp8"],
+                step_mode="fused")
         del params
         free(name)
 
@@ -3638,6 +3984,7 @@ def main(argv=None) -> int:
              "engine_fused": fused, "engine_split": split,
              "engine_dense_prefill": dense, "engine_dbrx": dbrx,
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
+             "engine_eager": eager,
              "plan": plan,
              "families": families, "b3_backward_cases": b3_bwd,
              "train": training, "steps": launch_steps,

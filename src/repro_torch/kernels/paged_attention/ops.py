@@ -75,8 +75,11 @@ _ARGTYPES = {
 }
 # the decode tile's tickets: int32 zeros, one per (row, kv head), kept per
 # (device, stream) -- each launch leaves them zero, and launches on one
-# stream run in turn -- and the SM count of each device
+# stream run in turn -- and the SM count of each device.  Tickets are never
+# freed: a captured CUDA graph holds the address it was captured with
+# (``_RETIRED`` keeps those a larger batch replaced).
 _TICKETS: dict = {}
+_RETIRED: list = []
 _SMS: dict = {}
 
 
@@ -168,6 +171,13 @@ def _tickets(n: int, device, stream: int) -> torch.Tensor:
     key = (torch.device(device).index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # made under a capture they would live in the graph's pool
+            raise RuntimeError(
+                "the decode tile's tickets must exist before a CUDA graph "
+                "capture: run the call once on the capture stream first")
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(n, 256, 0 if t is None else 2 * t.numel()),
                         dtype=torch.int32, device=device)
         _TICKETS[key] = t
@@ -205,7 +215,9 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
                   view into the (L, slots, page, dh) pool (no copy)
     block_tables: (B, Hkv, max_pages) int — entries past the length may be
                   arbitrary ids; they are clipped into range
-    lengths:      (B,) int tokens stored per row (0 pads: the output is 0)
+    lengths:      (B,) int tokens stored per row (0 pads: the output is 0);
+                  what the pools hold past them (non-finite values too)
+                  does not reach the output
     returns       (B, Hkv, r, dh)
 
     On CUDA tensors bf16 runs both products on the tensor cores and fp32

@@ -16,7 +16,8 @@ def paged_attention_ref(q: torch.Tensor, kpool: torch.Tensor,
     """q:            (B, Hkv, r, dh) — one new token per sequence, grouped
     kpool/vpool:  (num_slots, page, dh)
     block_tables: (B, Hkv, max_pages) int slot ids, all in range
-    lengths:      (B,) int tokens stored per sequence (0 pads)
+    lengths:      (B,) int tokens stored per sequence (0 pads); the pools'
+                  contents past them may be anything
     returns       (B, Hkv, r, dh)
     """
     B, Hkv, r, dh = q.shape
@@ -26,10 +27,14 @@ def paged_attention_ref(q: torch.Tensor, kpool: torch.Tensor,
 
     K = kpool[bt].reshape(B, Hkv, S, dh)
     V = vpool[bt].reshape(B, Hkv, S, dh)
-
-    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), K.float()) / math.sqrt(dh)
     valid = torch.arange(S, device=q.device)[None, :] \
         < lengths.long()[:, None]                           # (B, S)
+    # keys past the length are not read: what a slot holds there, a
+    # non-finite value too, does not reach the output (P = 0 times it
+    # would be NaN)
+    V = V.masked_fill(~valid[:, None, :, None], 0)
+
+    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), K.float()) / math.sqrt(dh)
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     w = torch.softmax(s, dim=-1)
     w = torch.nan_to_num(w, nan=0.0)        # rows that see no key

@@ -32,7 +32,11 @@ The cluster's device classes are simulated: every pool shard lives on the
 one torch ``device`` the engine runs on.  Shapes are pow2-bucketed as in
 the reference, so each model call sees at most ``fused_bucket_count()``
 (``bucket_count()`` and ``prefill_bucket_count()`` for the split calls)
-distinct shapes.  Every mode combination is ported.
+distinct shapes.  On the card the three paged calls capture one CUDA graph
+per shape and replay it on every later call of that shape
+(``serving.graphs``, the counterpart of the reference's ``jax.jit``;
+``graphs.disable_capture()`` runs them eagerly); the dense oracle calls
+and the module probe run eagerly.  Every mode combination is ported.
 
 Telemetry, as in the reference: with ``EngineConfig.telemetry`` a
 :class:`Tracer` records nested admit / fused_step / prefill_chunk /
@@ -75,6 +79,7 @@ from repro_torch.core.profiler import (analytic_attention_model,
 from repro_torch.device import resolve
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.graphs import CapturedFn, CudaGraphs
 from repro_torch.serving.kvcache import PagedHeadCache
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.telemetry import (MetricsRegistry, MetricsView, Tracer,
@@ -284,23 +289,27 @@ class InferenceEngine:
             self._c_recompiles)
         # anchor / anchor-sink are fixed per engine; the exchange lane
         # arrays stage remote pool shards' pages through the anchor inside
-        # the same model call (see transformer.sharded_decode_step)
+        # the same model call (see transformer.sharded_decode_step).  The
+        # paged calls take the params, the pools and the step's host
+        # arrays; on the card each captures one graph per shape into the
+        # engine's one graph pool
         anchor, asink = self.kv.anchor, self.kv.sink
-        self._paged_fn = count_recompiles(
+        self._graphs = CudaGraphs(self.device)
+        self._paged_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, ws_, wt, bt, ln, ws, wo, t,
             pos: T.sharded_decode_step(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, ws_, wt,
-                bt, ln, ws, wo, t, pos), self._c_recompiles)
-        self._chunk_fn = count_recompiles(
+                bt, ln, ws, wo, t, pos), self._c_recompiles, self._graphs)
+        self._chunk_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
             t, li: T.sharded_prefill_chunk(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
-                bt, ln, st, ws, wo, t, li), self._c_recompiles)
-        self._fused_fn = count_recompiles(
+                bt, ln, st, ws, wo, t, li), self._c_recompiles, self._graphs)
+        self._fused_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
             t, li: T.sharded_fused_step(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
-                bt, ln, st, ws, wo, t, li), self._c_recompiles)
+                bt, ln, st, ws, wo, t, li), self._c_recompiles, self._graphs)
         self._decode_shapes: Set[Tuple[int, int, int]] = set()
         self._prefill_shapes: Set[Tuple[int, int, int, int]] = set()
         # fused mode needs BOTH paged paths (decode rows and prefill rows
@@ -409,13 +418,31 @@ class InferenceEngine:
         self._attribute_module_times(a1 - a0, d1 - d0)
         return logits
 
+    def _paged_call(self, fn: CapturedFn, traced_fn, dev,
+                    reqs: List[Request]):
+        """One paged model call on the pools: through its captured wrapper
+        ``fn``, or under the module probe through its traced twin
+        ``traced_fn`` (see ``_probe_call``).  ``dev`` is what ``_upload``
+        gave for the call's host arrays.  Returns the logits."""
+        if self._trace_modules:
+            return self._probe_call(traced_fn, dev, reqs)
+        kps, vps = self.kv.pools()
+        logits, kps, vps = fn(self.params, kps, vps, *dev)
+        self.kv.install_pools(kps, vps)
+        return logits
+
     def _upload(self, host: Tuple[np.ndarray, ...], nbytes: int = 0
-                ) -> Tuple[torch.Tensor, ...]:
-        """Host arrays -> device tensors (same dtypes, same bytes).  When
-        the module probe is on, an upload of ``nbytes`` > 0 (the paged
-        calls') is timed to its end on the device and folded into the
-        measured h2d bandwidth gauge the hauler's link model follows."""
-        if not self._trace_modules or nbytes <= 0:
+                ) -> Tuple:
+        """Host arrays -> what the model call takes.  A paged call's
+        (``nbytes`` > 0) wrapper takes the host arrays themselves: it
+        stages them into its captured inputs, or uploads them where it
+        runs eagerly.  Otherwise device tensors (same dtypes, same bytes);
+        under the module probe a paged call's upload is timed to its end
+        on the device and folded into the measured h2d bandwidth gauge the
+        hauler's link model follows."""
+        if nbytes > 0 and not self._trace_modules:
+            return host
+        if nbytes <= 0:
             return tuple(torch.from_numpy(a).to(self.device) for a in host)
         t0 = time.perf_counter()
         dev = tuple(torch.from_numpy(a).to(self.device) for a in host)
@@ -471,15 +498,18 @@ class InferenceEngine:
         return len(self.fused_bucket_shapes())
 
     def decode_compile_count(self) -> int:
-        """Distinct shapes the paged decode step has been called with."""
+        """Distinct shapes the paged decode step has been called with (on
+        the card, one captured graph each)."""
         return self._paged_fn._cache_size()
 
     def prefill_compile_count(self) -> int:
-        """Distinct shapes the prefill-chunk step has been called with."""
+        """Distinct shapes the prefill-chunk step has been called with (on
+        the card, one captured graph each)."""
         return self._chunk_fn._cache_size()
 
     def fused_compile_count(self) -> int:
-        """Distinct shapes the fused step has been called with so far."""
+        """Distinct shapes the fused step has been called with so far (on
+        the card, one captured graph each)."""
         return self._fused_fn._cache_size()
 
     # ------------------------------------------------------------------ admit
@@ -646,14 +676,9 @@ class InferenceEngine:
         self._c_gather_d2d.inc(plan.d2d_bytes())
         with self.tracer.span("prefill_chunk",
                               args={"batch": Bp, "chunk": Cp, "pages": Pp}):
-            if self._trace_modules:
-                logits = self._probe_call(T.sharded_prefill_chunk_traced,
-                                          dev, [r for r, _, _ in spans])
-            else:
-                kps, vps = self.kv.pools()
-                logits, kps, vps = self._chunk_fn(self.params, kps, vps,
-                                                  *dev)
-                self.kv.install_pools(kps, vps)
+            logits = self._paged_call(self._chunk_fn,
+                                      T.sharded_prefill_chunk_traced, dev,
+                                      [r for r, _, _ in spans])
             self.tracer.sync(logits)
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
@@ -727,14 +752,9 @@ class InferenceEngine:
         self._c_gather_d2d.inc(plan.d2d_bytes())
         with self.tracer.span("paged_decode",
                               args={"batch": Bp, "pages": Pp}):
-            if self._trace_modules:
-                logits = self._probe_call(T.sharded_decode_step_traced, dev,
-                                          active)
-            else:
-                kps, vps = self.kv.pools()
-                logits, kps, vps = self._paged_fn(self.params, kps, vps,
-                                                  *dev)
-                self.kv.install_pools(kps, vps)
+            logits = self._paged_call(self._paged_fn,
+                                      T.sharded_decode_step_traced, dev,
+                                      active)
             self.tracer.sync(logits)
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
@@ -887,15 +907,9 @@ class InferenceEngine:
                                          "decode_rows": len(dec),
                                          "prefill_tokens": n_pre}):
             t0 = time.perf_counter() if (tr.enabled or time_it) else 0.0
-            if self._trace_modules:
-                logits = self._probe_call(
-                    T.sharded_fused_step_traced, dev,
-                    dec + [r for r, _, _ in spans])
-            else:
-                kps, vps = self.kv.pools()
-                logits, kps, vps = self._fused_fn(self.params, kps, vps,
-                                                  *dev)
-                self.kv.install_pools(kps, vps)
+            logits = self._paged_call(self._fused_fn,
+                                      T.sharded_fused_step_traced, dev,
+                                      dec + [r for r, _, _ in spans])
             tr.sync(logits)
             if tr.enabled or time_it:
                 if not tr.enabled and logits.is_cuda:

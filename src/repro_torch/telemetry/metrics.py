@@ -203,10 +203,12 @@ class ShapeCountingFn:
     tensor leaf, nested dicts, lists and tuples included, as jit keys its
     cache on every leaf of the argument pytrees.
 
-    Eager PyTorch compiles nothing per shape, so the counterpart of the
-    reference's jit-recompile counter is the number of distinct bucket
-    shapes a callable has seen: the quantity the engine's
-    ``fused_bucket_count()`` bounds.  ``_cache_size()`` reads it."""
+    The counterpart of the reference's jit-recompile counter is the number
+    of distinct bucket shapes a callable has seen: the quantity the
+    engine's ``fused_bucket_count()`` bounds.  ``_cache_size()`` reads it.
+    This wrapper runs the callable eagerly (the engine's dense calls); the
+    paged calls' ``serving.graphs.CapturedFn`` counts the same way and
+    captures one CUDA graph per shape."""
 
     __slots__ = ("fn", "counter", "shapes")
 
@@ -215,11 +217,16 @@ class ShapeCountingFn:
         self.counter = counter
         self.shapes: set = set()
 
-    def __call__(self, *args, **kwargs):
-        key = _shape_key((args, kwargs))
+    def _count(self, args_kwargs) -> tuple:
+        """The shape key of ``(args, kwargs)``, counted if new."""
+        key = _shape_key(args_kwargs)
         if key not in self.shapes:
             self.shapes.add(key)
             self.counter.inc()
+        return key
+
+    def __call__(self, *args, **kwargs):
+        self._count((args, kwargs))
         return self.fn(*args, **kwargs)
 
     def _cache_size(self) -> int:

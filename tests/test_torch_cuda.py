@@ -2,6 +2,8 @@
 the card.  Every test here needs a GPU and nvcc and skips without them; run
 them on the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,6 +13,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
+from repro_torch.telemetry import MetricsRegistry
 
 pytestmark = pytest.mark.cuda
 
@@ -512,6 +515,13 @@ def test_decode_pool_contents_past_the_lengths_do_not_reach_the_output(
             err.max().item()
         assert torch.isfinite(got).all()
         assert torch.all(got[lengths == 0] == 0)
+        # the plain version on the same poisoned pools: V cleared past
+        # each length there too, so it is its finite pools' output
+        ref_p = paged_attention_ref(q, kp, vp, tables, lengths)
+        assert torch.isfinite(ref_p).all() and torch.equal(ref_p, ref)
+        err = (got.float() - ref_p.float()).abs()
+        assert (err <= 2e-2 * (1 + ref_p.float().abs())).all(), \
+            err.max().item()
 
 
 # the decode tile's work split at the edges of its grid: one long row
@@ -1231,3 +1241,165 @@ def test_reduced_deepseek_trains_on_the_card_like_the_cpu(cuda):
                    for p in flatten(runs[0]["params"])[0]])
     assert torch.linalg.vector_norm(a - b) \
         <= 1e-5 * torch.linalg.vector_norm(b)
+
+
+# -------------------------------------------- captured paged calls (graphs)
+def _small_engine(cfg, params, dev, mode):
+    """The reduced engine on ``dev`` serving 6 requests under ``mode``:
+    (tokens by request id, the engine)."""
+    import numpy as np
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    eng = InferenceEngine(
+        cfg, _to(params, dev), ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=8, max_seq=128, page_size=16,
+                                prefill_chunk=16, step_mode=mode),
+        device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        eng.submit(Request(rid=i, prompt=[
+            int(x) for x in rng.integers(0, cfg.vocab_size,
+                                         int(rng.integers(5, 60)))],
+            max_new_tokens=8))
+    assert eng.run_until_drained(500)
+    return {r.rid: r.output for r in eng.finished}, eng
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_captured_engine_emits_the_cpu_and_eager_tokens(cuda, mode):
+    """The reduced fp32 engine (dh 64) on the card, its paged calls
+    captured one graph per shape and replayed, emits the CPU engine's
+    tokens and those of a ``disable_capture()`` run on the card; the
+    kernels' launch counts after the captured run equal the eager run's
+    (replays counted, captures not), and the graphs stay within the
+    bucket counts."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving import graphs
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    params = init_params(cfg, 0, device="cpu")
+    counts = []
+    for run in ("captured", "eager"):
+        for t in (ops.LAUNCHES, ops.PREFILL_TILE_LAUNCHES):
+            for k in t:
+                t[k] = 0
+        with (graphs.disable_capture() if run == "eager"
+              else contextlib.nullcontext()):
+            got, eng = _small_engine(cfg, params, cuda, mode)
+        torch.cuda.synchronize()
+        counts.append((dict(ops.LAUNCHES), dict(ops.PREFILL_TILE_LAUNCHES)))
+        wrappers = {"fused": (eng._fused_fn,),
+                    "split": (eng._chunk_fn, eng._paged_fn)}[mode]
+        if run == "captured":
+            captured = got
+            assert wrappers[-1].replays > 0     # the fused or decode call
+            assert [len(w.entries) for w in wrappers] \
+                == [w._cache_size() for w in wrappers]
+            if mode == "fused":
+                assert len(eng._fused_fn.entries) <= eng.fused_bucket_count()
+            else:
+                assert len(eng._chunk_fn.entries) \
+                    <= eng.prefill_bucket_count()
+                assert len(eng._paged_fn.entries) <= eng.bucket_count()
+        else:
+            assert not any(w.entries or w.replays for w in wrappers)
+    assert captured == got == _small_engine(cfg, params, "cpu", mode)[0]
+    assert counts[0] == counts[1]
+    b1 = counts[0][0]["paged_prefill_attention"]
+    assert b1 > 0 and sum(counts[0][1].values()) == b1
+
+
+def _fused_inputs(cfg, rows, C, Pp, page, slot0, sink, seed):
+    """Host arrays of one fused step on a single pool shard (no exchange
+    lanes): ``rows`` of (start, n) over fresh page chains from slot
+    ``slot0`` on."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    B, Hkv = len(rows), cfg.n_kv_heads
+    tables = (slot0 + rng.permutation(B * Hkv * Pp)).reshape(
+        B, Hkv, Pp).astype(np.int32)
+    lengths = np.array([s + n for s, n in rows], np.int32)
+    starts = np.array([s for s, _ in rows], np.int32)
+    wslots = np.full((B, Hkv, C), sink, np.int32)
+    woffs = np.zeros((B, C), np.int32)
+    toks = np.zeros((B, C), np.int32)
+    for b, (s, n) in enumerate(rows):
+        p = np.arange(s, s + n)
+        wslots[b, :, :n] = tables[b][:, p // page]
+        woffs[b, :n] = p % page
+        toks[b, :n] = rng.integers(0, cfg.vocab_size, n)
+    lanes = tuple(np.zeros((0,), np.int32) for _ in range(6))
+    return lanes + (tables, lengths, starts, wslots, woffs, toks,
+                    np.array([n - 1 for _, n in rows], np.int32))
+
+
+def test_replayed_bf16_fused_steps_repeat_the_eager_steps_bit_for_bit(cuda):
+    """bf16 fused steps at three shapes (a prefill chunk of C * r = 32
+    folded rows: B1's wgmma tile; decode rows at r = 2: the decode tile;
+    MHA decode rows: the split tile), each captured, then replayed in
+    another order with the other entries' replays and eager launches of
+    both kernels between: the logits and every pool slot the steps write
+    (the sink aside: padded tokens' duplicate writes race there, and no
+    length reaches it) equal the eager steps' bit for bit, and each replay
+    counts one launch a layer on its tile."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import graphs
+    from repro_torch.weights import init_params
+    page, slots = 16, 512
+    gqa = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64,
+                              dtype="bfloat16")
+    mha = dataclasses.replace(gqa, n_kv_heads=gqa.n_heads)
+    cases = {"wgmma": (gqa, [(0, 16), (5, 11), (40, 16)], 16, 4),
+             "tma": (gqa, [(70, 1), (3, 1), (150, 1), (0, 1)], 1, 16),
+             "warp": (mha, [(33, 1), (90, 1)], 1, 8)}
+    reg = MetricsRegistry()
+    calls = {}
+    for i, (tile, (cfg, rows, C, Pp)) in enumerate(cases.items()):
+        assert ops.launch_tile(torch.bfloat16, C, cfg.gqa_ratio, page) \
+            == tile
+        g = torch.Generator(device=cuda).manual_seed(i)
+        pools = [{0: torch.randn((cfg.n_layers, slots + 1, page,
+                                  cfg.head_dim), generator=g, device=cuda)
+                  .to(torch.bfloat16)} for _ in range(2)]
+        fn = graphs.CapturedFn(
+            lambda p, kp, vp, *a, cfg=cfg: T.sharded_fused_step(
+                cfg, p, kp, vp, 0, slots, *a),
+            reg.counter("jit/recompiles"), graphs.CudaGraphs(cuda))
+        host = _fused_inputs(cfg, rows, C, Pp, page, 0, slots, i)
+        calls[tile] = (cfg, fn, _to(init_params(cfg, i, device="cpu"),
+                                    cuda), pools, host)
+
+    def written(pools):
+        return [p[0][:, :slots].clone() for p in pools]
+
+    eager = {}
+    for tile, (cfg, fn, params, pools, host) in calls.items():
+        first = written(pools)
+        with graphs.disable_capture():
+            logits, _, _ = fn(params, *pools, *host)
+        eager[tile] = (logits.clone(), written(pools))
+        for p, w in zip(pools, first):            # back to the start
+            p[0][:, :slots] = w
+        calls[tile] += (first,)
+    args = make(cuda, torch.bfloat16, **SHAPES[3])
+    dargs = make_decode(cuda, torch.bfloat16, **DECODE_SHAPES[0])
+    for tile in ("wgmma", "tma", "warp", "tma", "wgmma", "warp", "wgmma"):
+        cfg, fn, params, pools, host, first = calls[tile]
+        for p, w in zip(pools, first):
+            p[0][:, :slots] = w
+        before = dict(ops.PREFILL_TILE_LAUNCHES)
+        logits, _, _ = fn(params, *pools, *host)
+        torch.cuda.synchronize()
+        assert ops.PREFILL_TILE_LAUNCHES[tile] - before[tile] \
+            == cfg.n_layers
+        assert torch.equal(logits, eager[tile][0]), tile
+        for a, b in zip(written(pools), eager[tile][1]):
+            assert torch.equal(a, b), tile
+        ops.paged_prefill_attention(*args)        # eager launches between
+        ops.paged_attention(*dargs)
+    assert {t: (len(c[1].entries), c[1].replays) for t, c in calls.items()} \
+        == {"wgmma": (1, 2), "tma": (1, 1), "warp": (1, 1)}

@@ -110,6 +110,53 @@ def test_decode_kernel_clips_out_of_range_tables(dtype):
     np.testing.assert_allclose(got, kern, **TOL[dtype])
 
 
+def _unmasked_plain(q, k, v, tables, lengths):
+    """The plain decode version as it was before it cleared V past each
+    length (the reference oracle's form: weight 0 times whatever V holds)."""
+    B, Hkv, r, dh = q.shape
+    S = tables.shape[-1] * k.shape[1]
+    K = k[tables.long()].reshape(B, Hkv, S, dh).float()
+    V = v[tables.long()].reshape(B, Hkv, S, dh).float()
+    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), K) / dh ** 0.5
+    valid = torch.arange(S)[None, :] < lengths.long()[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    w = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    return torch.einsum("bhrk,bhkd->bhrd", w, V).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_decode_plain_keeps_pool_contents_past_the_lengths_out(name, dtype):
+    """NaN in every pool row past each row's length (its last page's tail,
+    its later pages, a padded row's pages) and in every slot no table
+    names: the plain version (the wrapper on CPU tensors) gives a finite
+    output, equal to its output on the finite pools, which equals the
+    unmasked form's there."""
+    case = make_decode_case(3, **DECODE_CASES[name])
+    q, k, v, tables, lengths = (t(case[n]) for n in (
+        "q", "k", "v", "tables", "lengths"))
+    q, k, v = (x.to(TDT[dtype]) for x in (q, k, v))
+    finite = ops.paged_attention(q, k, v, tables, lengths)
+    assert torch.equal(finite, _unmasked_plain(q, k, v, tables, lengths))
+    page = k.shape[1]
+    pos = torch.arange(tables.shape[-1] * page)
+    slot = tables.long()[..., pos // page]                   # (B, Hkv, S)
+    row = (pos % page).expand_as(slot)
+    past = (pos >= lengths.long()[:, None, None]).expand_as(slot)
+    named = torch.zeros(k.shape[0], dtype=torch.bool)
+    named[tables.long().flatten()] = True
+    kp, vp = k.clone(), v.clone()
+    for pool in (kp, vp):
+        pool[slot[past], row[past]] = float("nan")
+        pool[~named] = float("nan")
+    assert torch.isnan(vp).any() and past.any()
+    got = ops.paged_attention(q, kp, vp, tables, lengths)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, finite)
+    assert not torch.isfinite(_unmasked_plain(q, kp, vp, tables,
+                                              lengths)).all()
+
+
 def test_decode_kernel_cpu_tensors_never_touch_the_loader(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("kernel loader touched for CPU tensors")
