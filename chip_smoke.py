@@ -62,7 +62,10 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               the same engine on the CPU (plain attention, eager), under the
               fused step, the split schedule and the three dense mode
               combinations: identical tokens, and every mode's tokens == the
-              fused step's.  Then the
+              fused step's; then with a window of 16 on both layers under
+              the default modes and dense/dense (the dense route: B3 with
+              the window, dense decode; prompts of 5-60 tokens cross it):
+              GPU tokens == CPU tokens.  Then the
               reduced dbrx (MoE) the same way under the fused step and the
               split schedule, its row batches past 64 token rows (the capped
               MoE pass, which drops assignments), every MoE call on the GPU
@@ -119,17 +122,27 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               position when every call packed the same rows (else the
               agreement is logged, with where the rows part).  Then
               profile_attention on the card over the reference's 8 x 8
-              grid at dh 128 in bf16 and fp32, with the fit of each.
+              grid at dh 128 in bf16 and fp32, each captured (every grid
+              point's timed calls replay a CUDA graph, as the reference
+              times a jitted call) and eagerly, with the fit of each; then
+              three grid points captured anew and replayed 8 times one at a
+              time (the wall and the device time of each replay), the last
+              replay's output against the eager call's, bit for bit.
   7. dense:   the same weights and requests under prefill_mode="dense": one
               serial dense prefill per request (B3 in every layer), then
               split decode calls through B2 (the decode calls captured,
               the dense prefill calls eager).  Exact launch counts, the first
               prefill call's layer-0 B3 launch against the plain version and
               its logits against a plain-attention re-run (beside a P-rounded
-              and a dropped-key-tile re-run).  Dense decode runs only in the
-              small phase: it copies every request's dense cache through the
-              host on every step.  Then eagerly, as in phase 5 (tokens
-              logged, not gated).
+              and a dropped-key-tile re-run).  Then eagerly, as in phase 5
+              (tokens logged, not gated).  Then the same weights with a
+              sliding window of 512 on every layer under the default
+              EngineConfig, which the engine serves by the dense route (a
+              dense prefill per request through B3 with the window, then
+              dense decode, which copies every request's dense cache
+              through the host on every step): the first 4 requests, 8 new
+              tokens each; exact B3 launches (none of B1 or B2) and the
+              first prefill call held as above.
   8. dbrx:    phase 5's engine, requests and gates on dbrx-132b (16 experts,
               top 4) at its published widths and 8 of its 40 layers, under
               the fused step, phase 6's probe on the fused step (the MoE
@@ -172,10 +185,13 @@ Phases, in order (12 runs right after 7, on phase 5's weights; 13 after
               re-runs (relative L2 under 0.1, floor: P rounded, fault: a
               key tile dropped in layer 0's backward), exact B3 launches
               per step (48 forward, 24 of each backward kernel), 20 steps
-              that learn, and 5 steps + a checkpoint + 5 more from it
-              against 10 straight.  ms per step, tokens/s, peak memory,
-              the model FLOP share; with --profile B3's forward and
-              backward device time per step.
+              that learn, served captured (the step one CUDA graph: the
+              first step run and captured, 19 replays) and then eagerly,
+              their losses equal bit for bit, and 5 steps + a checkpoint +
+              5 more from it (captured anew) against 10 straight.  ms per
+              step, tokens/s, peak memory, the model FLOP share, replays,
+              warm-up and capture seconds of each run; with --profile B3's
+              forward and backward device time per step.
  12. plan:    the paper's planning stack over phase 5's traffic: the port's
               sigma* search (repro_torch.core.parallelizer) plans
               qwen3-14b on the paper testbed (4 A100, 2 + 2 3090 on two
@@ -1127,7 +1143,8 @@ def plain_flash(round_p=False, drop_tile=False):
     ``round_p`` rounds P to V's type before PV with l summed unrounded (a
     second exact implementation: the bf16 noise floor of a call's
     logits); ``drop_tile`` masks keys 64-127 for every row (a fault: one
-    64-key tile dropped, which the logits check must catch)."""
+    64-key tile dropped, which the logits check must catch), or, an int,
+    the 64 keys from that one."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     def fn(q, k, v, *, causal=True, window=0, layout="BHSD", **_):
@@ -1147,7 +1164,8 @@ def plain_flash(round_p=False, drop_tile=False):
             if window > 0:
                 ok &= qp - kp < window
             if drop_tile:
-                ok &= (kp < 64) | (kp >= 128)
+                lo = 64 if drop_tile is True else drop_tile
+                ok &= (kp < lo) | (kp >= lo + 64)
             s = s.masked_fill(~ok, float("-inf"))
             m = s.amax(-1, keepdim=True)
             pr = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
@@ -1251,6 +1269,7 @@ def leaves(tree):
     return [tree]
 
 
+SMALL_WINDOW = 16
 SMALL_MODES = {
     "fused": dict(step_mode="fused"),
     "split": dict(step_mode="split"),
@@ -1286,7 +1305,9 @@ def small_engine(cfg, cpu_params, device, modes):
 def small_engine_phase(dev):
     """Reduced fp32 qwen3 family (dh 64, so the kernels take it): under
     each schedule and mode combination the engine on the GPU must emit the
-    CPU engine's tokens, and every mode the fused step's.  Then the
+    CPU engine's tokens, and every mode the fused step's; so must the same
+    config with a window of SMALL_WINDOW on both layers (the dense route)
+    under the default modes and dense/dense.  Then the
     reduced dbrx (dh 64) under the fused step and the split schedule, GPU
     against CPU: 8 rows x 16 tokens = 128 token rows pass 64, so the MoE
     layer takes its capped pass, and on the GPU it never synchronises."""
@@ -1313,6 +1334,25 @@ def small_engine_phase(dev):
             raise AssertionError(f"small engine: {mode} tokens != fused "
                                  f"tokens")
     log(f"small engine: {', '.join(SMALL_MODES)}: identical token streams")
+    # one window on every layer: the dense route under every mode; prompts
+    # of 5-60 tokens and their contexts cross the window
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    wcfg = dataclasses.replace(cfg, sliding_window=SMALL_WINDOW)
+    for mode, modes in (("default", {}),
+                        ("dense both", SMALL_MODES["dense both"])):
+        want = small_engine(wcfg, cpu_params, "cpu", modes)[0]
+        before = fa_ops.LAUNCHES["flash_attention"]
+        got, _, stats = small_engine(wcfg, cpu_params, dev, modes)
+        b3 = fa_ops.LAUNCHES["flash_attention"] - before
+        if got != want:
+            raise AssertionError(f"small engine (window {SMALL_WINDOW}, "
+                                 f"{mode}): GPU tokens {got} != CPU tokens "
+                                 f"{want}")
+        assert not stats and b3 >= 6 * wcfg.n_layers, (stats, b3)
+        log(f"small engine (window {SMALL_WINDOW}, {mode} modes): 6 "
+            f"requests, GPU == CPU token streams "
+            f"({sum(len(v) for v in want.values())} tokens); dense prefill "
+            f"(B3 launches {b3}) and dense decode, no paged call")
 
     cfg = dataclasses.replace(smoke_config("dbrx-132b"), head_dim=64)
     cpu_params = init_params(cfg, 0, device="cpu")
@@ -2250,62 +2290,98 @@ def probe_phase(dev, cfg, params, mode, base):
 def profile_attention_phase(dev):
     """``profile_attention`` on the card over the reference's default
     grid (8 head counts x 8 contexts, batch 4, 3 repeats) at dh 128, in
-    bf16 and fp32, and the tau(h, g) fit over each."""
-    from repro_torch.core.profiler import (fit_attention_model,
+    bf16 and fp32, each captured (each grid point's call a CUDA graph,
+    replayed in the timed loop) and eagerly (``graphs.disable_capture()``),
+    and the tau(h, g) fit over each.  Then three grid points (the grid's
+    least, its most and h 8, ctx 512) captured anew and replayed 8 times
+    one at a time: each replay's wall (replay and sync) and device time,
+    and the last replay's output against the eager call's: equal bit for
+    bit."""
+    from repro_torch.core.profiler import (decode_attn, fit_attention_model,
                                            profile_attention)
+    from repro_torch.serving import graphs
+    from repro_torch.telemetry.metrics import Counter
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        t0 = time.perf_counter()
-        s = profile_attention(head_dim=128, dtype=dtype, device=dev)
-        wall = time.perf_counter() - t0
-        assert len(s) == 64 and all(t > 0.0 for _, _, t in s), s
-        model, r2 = fit_attention_model(s)
-        ms = [t * 1e3 for _, _, t in s]
-        log(f"profile_attention ({dtype_name(dtype)}, dh 128, 8 x 8 grid, "
-            f"batch 4, 3 repeats): {min(ms):.4f}-{max(ms):.4f} ms per call "
-            f"over {s[0][1] / 1e6:.3f}-{s[-1][1] / 1e6:.1f} MB of K/V; "
-            f"tau = a*h + b*g + c with a {model.a:.4g} s/head, b "
-            f"{model.b:.4g} s/byte, c {model.c:.4g} s, R^2 {r2:.4f} "
-            f"({wall:.1f} s)")
-        out[dtype_name(dtype)] = dict(a=model.a, b=model.b, c=model.c,
-                                      r2=r2, samples=s)
+        for how in ("captured", "eager"):
+            t0 = time.perf_counter()
+            with (graphs.disable_capture() if how == "eager"
+                  else contextlib.nullcontext()):
+                s = profile_attention(head_dim=128, dtype=dtype, device=dev)
+            wall = time.perf_counter() - t0
+            assert len(s) == 64 and all(t > 0.0 for _, _, t in s), s
+            model, r2 = fit_attention_model(s)
+            ms = [t * 1e3 for _, _, t in s]
+            log(f"profile_attention ({dtype_name(dtype)}, {how}, dh 128, 8 x "
+                f"8 grid, batch 4, 3 repeats): {min(ms):.4f}-{max(ms):.4f} "
+                f"ms per call over {s[0][1] / 1e6:.3f}-{s[-1][1] / 1e6:.1f} "
+                f"MB of K/V; tau = a*h + b*g + c with a {model.a:.4g} "
+                f"s/head, b {model.b:.4g} s/byte, c {model.c:.4g} s, R^2 "
+                f"{r2:.4f} ({wall:.1f} s)")
+            log(f"profile_attention ({dtype_name(dtype)}, {how}): ms per call "
+                f"by heads (rows, batch x h) and contexts 64-1536 "
+                f"(columns): " + "; ".join(
+                    f"{int(s[i][0])}: " + " ".join(
+                        f"{t * 1e3:.4f}" for _, _, t in s[i:i + 8])
+                    for i in range(0, 64, 8)))
+            out[f"{dtype_name(dtype)} {how}"] = dict(
+                a=model.a, b=model.b, c=model.c, r2=r2, samples=s)
+        for h, ctx in ((8, 512), (1, 64), (24, 1536)):
+            g = torch.Generator(device=dev).manual_seed(h * 131 + ctx)
+            q, k, v = (torch.randn(shape, generator=g, dtype=dtype,
+                                   device=dev)
+                       for shape in ((4, h, 1, 128), (4, h, ctx, 128),
+                                     (4, h, ctx, 128)))
+            call = graphs.CapturedFn(decode_attn, Counter("profile"),
+                                     graphs.CudaGraphs(dev))
+            call(q, k, v)
+            # replays one at a time: the wall of each (replay and sync) and
+            # its device time (events around it)
+            walls, devs = [], []
+            for _ in range(8):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                replayed = call(q, k, v)
+                e1.record()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                devs.append(e0.elapsed_time(e1))
+            eager = decode_attn(q, k, v)
+            assert call.replays == 8, call.replays
+            if not torch.equal(replayed, eager):
+                raise AssertionError(
+                    f"profile_attention ({dtype_name(dtype)}): the replayed "
+                    f"call at h {h}, ctx {ctx} differs from the eager one by "
+                    f"{float((replayed.float() - eager.float()).abs().max())}")
+            log(f"profile_attention ({dtype_name(dtype)}): grid point h {h}, "
+                f"ctx {ctx}: 8 replays one at a time, wall ms "
+                f"{[round(w, 4) for w in walls]}, device ms (events) "
+                f"{[round(d, 4) for d in devs]}; the last replay's output "
+                f"equals the eager call's bit for bit")
+            out[f"{dtype_name(dtype)} replays h {h} ctx {ctx}"] = dict(
+                wall_ms=walls, device_ms=devs)
     return out
 
 
-def dense_prefill_phase(dev, profile, cfg, params, seed=0):
-    """Serve the engine phases' 16 requests under prefill_mode="dense":
-    each admitted request gets one serial dense ``transformer.prefill``
-    (B3 in every layer), its K/V stored into the pools, then the split
-    schedule's decode calls (B2).  The first prefill call is held against
-    plain re-runs; with ``profile`` the device is traced from the end of
-    that check to the end of the run (the other 15 prefill calls and every
-    decode call).  The launch counts are set to 0 just before the run and
-    read just after it."""
-    from repro_torch.core.cluster import ClusterSpec
+def prefill_checker(eng, check, check_s, after=None):
+    """The engine's dense prefill call (``eng._prefill_fn.fn``) with its
+    first call held against plain re-runs: that call's layer-0 B3 launch
+    against the plain version, and its logits against ``transformer.
+    prefill`` with plain attention (the re-run), with P rounded to bf16
+    (the floor) and with a key tile dropped (the fault: keys 64-127; with
+    a window shorter than the prompt, the first whole 64-key tile of the
+    last row's window, which that row reads directly), none launching a
+    kernel.  Fills ``check``, adds the check's wall seconds to
+    ``check_s[0]`` and calls ``after()`` as it ends; later calls run
+    unchecked."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import transformer as T
-    from repro_torch.serving import EngineConfig, InferenceEngine
-
-    eng = InferenceEngine(
-        cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
-        primary_ids=[0], pool_ids=[1],
-        engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
-                                prefill_chunk=64, telemetry=True,
-                                prefill_mode="dense"),
-        device=dev)
-    assert (eng.use_fused, eng.use_paged, eng.use_paged_prefill) \
-        == (False, True, False)
-    n_req, new_tokens, prompt_lens = submit_requests(eng, cfg, seed)
+    cfg = eng.cfg
     call_fn = eng._prefill_fn.fn
     kernel_fn = fa_ops.flash_attention
-    check = {}
-    check_s = [0.0]                        # wall seconds the check adds
-    win_t0 = []                            # start of the traced window
-    if profile:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as tprofile
-        prof = tprofile(activities=[ProfilerActivity.CUDA])
 
     def rerun(p, batch, attn_fn):
         fa_ops.flash_attention = attn_fn
@@ -2340,11 +2416,14 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
         r0 = plain_flash()(*a0, **kw0).float()
         e0 = (o0.float() - r0).abs()
         logits = out[0]
+        ctx, win = int(batch["tokens"].shape[1]), cfg.sliding_window
+        lo = -(-(ctx - win) // 64) * 64 if 0 < win < ctx else 64
         ref = rerun(p, batch, plain_flash())
         floor = rerun(p, batch, plain_flash(round_p=True))
-        fault = rerun(p, batch, plain_flash(drop_tile=True))
+        fault = rerun(p, batch, plain_flash(drop_tile=lo))
         assert fa_ops.LAUNCHES == launches
-        check.update(ctx=int(batch["tokens"].shape[1]),
+        check.update(ctx=ctx, window=int(kw0.get("window", 0)),
+                     dropped=[lo, lo + 64],
                      rel_l2=rel_l2(logits, ref),
                      floor_rel_l2=rel_l2(floor, ref),
                      fault_rel_l2=rel_l2(fault, ref),
@@ -2358,11 +2437,70 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         check_s[0] += time.perf_counter() - t
+        if after is not None:
+            after()
+        return out
+    return checked
+
+
+def gate_prefill_check(tag, check):
+    """Log the checked prefill call and fail unless its layer-0 launch is
+    within the bf16 tolerance and its logits within LOGITS_LIMIT of the
+    plain re-run, between the floor and the fault."""
+    lo = check["dropped"][0]
+    log(f"{tag}: checked prefill call ({check['ctx']} tokens, window "
+        f"{check['window']}) kernel vs plain: layer-0 attention max abs err "
+        f"{check['layer0_max_abs']:.3g} (tol {TOL['bfloat16']}); re-run "
+        f"logits rel L2 {check['rel_l2']:.4g} (limit {LOGITS_LIMIT}; plain "
+        f"with P rounded {check['floor_rel_l2']:.4g}, plain with keys "
+        f"{lo}-{lo + 63} dropped {check['fault_rel_l2']:.4g}), max abs "
+        f"{check['max_abs']:.3g}, same argmax {check['argmax_agree']}")
+    if not (check["finite"] and check["layer0_ok"]
+            and check["rel_l2"] <= LOGITS_LIMIT):
+        raise AssertionError(f"{tag}: prefill call logits disagree with the "
+                             f"plain re-run: {check}")
+    assert check["floor_rel_l2"] < LOGITS_LIMIT < check["fault_rel_l2"], check
+
+
+def dense_prefill_phase(dev, profile, cfg, params, seed=0):
+    """Serve the engine phases' 16 requests under prefill_mode="dense":
+    each admitted request gets one serial dense ``transformer.prefill``
+    (B3 in every layer), its K/V stored into the pools, then the split
+    schedule's decode calls (B2).  The first prefill call is held against
+    plain re-runs; with ``profile`` the device is traced from the end of
+    that check to the end of the run (the other 15 prefill calls and every
+    decode call).  The launch counts are set to 0 just before the run and
+    read just after it."""
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(
+        cfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
+                                prefill_chunk=64, telemetry=True,
+                                prefill_mode="dense"),
+        device=dev)
+    assert (eng.use_fused, eng.use_paged, eng.use_paged_prefill) \
+        == (False, True, False)
+    n_req, new_tokens, prompt_lens = submit_requests(eng, cfg, seed)
+    call_fn = eng._prefill_fn.fn
+    check = {}
+    check_s = [0.0]                        # wall seconds the check adds
+    win_t0 = []                            # start of the traced window
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+        prof = tprofile(activities=[ProfilerActivity.CUDA])
+
+    def after_check():
         if profile:
             prof.start()
         win_t0.append(time.perf_counter())
-        return out
 
+    checked = prefill_checker(eng, check, check_s, after_check)
     eng._prefill_fn.fn = checked
     torch.cuda.reset_peak_memory_stats()
     for ops in (fa_ops, pa_ops):           # the main path's run starts here
@@ -2420,13 +2558,7 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
         f"calls, B1 {launches[NAMES['B1']]}; redispatches "
         f"{int(eng.metrics['redispatches'])}, evictions "
         f"{int(eng.metrics['evictions'])}")
-    log(f"engine (dense prefill): checked prefill call ({check['ctx']} "
-        f"tokens) kernel vs plain: layer-0 attention max abs err "
-        f"{check['layer0_max_abs']:.3g} (tol {TOL['bfloat16']}); re-run "
-        f"logits rel L2 {check['rel_l2']:.4g} (limit {LOGITS_LIMIT}; plain "
-        f"with P rounded {check['floor_rel_l2']:.4g}, plain with keys 64-127 "
-        f"dropped {check['fault_rel_l2']:.4g}), max abs "
-        f"{check['max_abs']:.3g}, same argmax {check['argmax_agree']}")
+    gate_prefill_check("engine (dense prefill)", check)
     assert drained and len(eng.finished) == n_req, "not every request done"
     assert all(len(r.output) == new_tokens for r in eng.finished)
     assert all(0 <= t < cfg.vocab_size for r in eng.finished
@@ -2439,11 +2571,6 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
     assert launches[NAMES["B1"]] == 0, launches
     assert set(stats) == {"decode"} and stats["decode"]["replays"] > 0 \
         and 0 < stats["decode"]["graphs"] <= stats["decode"]["bound"], stats
-    if not (check["finite"] and check["layer0_ok"]
-            and check["rel_l2"] <= LOGITS_LIMIT):
-        raise AssertionError(f"prefill call logits disagree with the plain "
-                             f"re-run: {check}")
-    assert check["floor_rel_l2"] < LOGITS_LIMIT < check["fault_rel_l2"], check
     log(f"engine (dense prefill): window after the check: prefill calls "
         f"2-{n_pre} and every decode call, {win_wall:.3f} s wall"
         f"{' under the profiler' if profile else ''}")
@@ -2452,6 +2579,92 @@ def dense_prefill_phase(dev, profile, cfg, params, seed=0):
         out.update(profile_summary(prof, steps, 0, steps, win_wall,
                                    "dense prefill"))
     return out
+
+
+# the full-width windowed cell: qwen3-14b's weights with one window on
+# every layer, served by the dense route (prefill through B3 with the
+# window, dense decode); 4 of the engine phases' requests, 8 new tokens
+WINDOW_FULL, WINDOW_REQ, WINDOW_NEW = 512, 4, 8
+
+
+def window_phase(dev, cfg, params, seed=0):
+    """``cfg`` with ``sliding_window`` WINDOW_FULL on the same weights (a
+    window changes no parameter shape), served under the default
+    EngineConfig: the paged paths take no window, so the engine runs the
+    split schedule with a dense prefill per request (``transformer.
+    prefill``: B3 with the window in every layer) and dense decode
+    (``decode_step``, the window in its mask; no kernel).  Its first
+    WINDOW_REQ requests of 128-1024 tokens, WINDOW_NEW new tokens each:
+    prompts and contexts pass the window.  Gates: B3 launches exact
+    (layers x prefill calls, no B1 or B2), the first prefill call's
+    layer-0 launch and logits against plain re-runs (``prefill_checker``).
+    The launch counts are set to 0 just before the run and read just
+    after it."""
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    wcfg = dataclasses.replace(cfg, sliding_window=WINDOW_FULL)
+    eng = InferenceEngine(
+        wcfg, params, ClusterSpec.build([("A100", 1), ("3090", 1)]),
+        primary_ids=[0], pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=16, max_seq=2048,
+                                prefill_chunk=64, telemetry=True),
+        device=dev)
+    assert (eng.use_fused, eng.use_paged, eng.use_paged_prefill) \
+        == (False, False, False)
+    rng = np.random.default_rng(seed)      # submit_requests' draws
+    lens = prompt_lengths(rng)[:WINDOW_REQ]
+    for i, n in enumerate(lens):
+        eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
+            0, cfg.vocab_size, int(n))], max_new_tokens=WINDOW_NEW))
+    check, check_s = {}, [0.0]
+    call_fn = eng._prefill_fn.fn
+    eng._prefill_fn.fn = prefill_checker(eng, check, check_s)
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (fa_ops, pa_ops):           # the main path's run starts here
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    drained = eng.run_until_drained(1000)
+    torch.cuda.synchronize()
+    launches = {**pa_ops.LAUNCHES, **fa_ops.LAUNCHES}   # ... and ends here
+    eng._prefill_fn.fn = call_fn
+    wall = time.perf_counter() - t0 - check_s[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_pre = eng.tracer.count("prefill")
+    n_dec = eng.tracer.count("dense_decode")
+    _, pmed, _ = span_ms(eng, "prefill", {0})
+    _, dmed, dp90 = span_ms(eng, "dense_decode")
+    gen = WINDOW_REQ * WINDOW_NEW
+    tag = f"engine (window {WINDOW_FULL})"
+    log(f"{tag}: {cfg.name} {cfg.n_layers}L, window {WINDOW_FULL} on every "
+        f"layer, default modes -> dense prefill + dense decode (split); "
+        f"{WINDOW_REQ} requests, prompts {[int(n) for n in lens]}, "
+        f"{WINDOW_NEW} new tokens each: {n_pre} prefill + {n_dec} decode "
+        f"calls in {wall:.2f} s wall ({check_s[0]:.2f} s of checks left "
+        f"out), {gen / wall:.2f} generated tokens/s; prefill-call ms "
+        f"median {pmed:.1f} (the checked call left out), decode-call ms "
+        f"median {dmed:.1f} p90 {dp90:.1f}; peak {peak_gb:.1f} GB; "
+        f"launches B3 {launches[NAMES['B3']]} == {cfg.n_layers} layers x "
+        f"{n_pre} prefill calls, B1 {launches[NAMES['B1']]}, B2 "
+        f"{launches[NAMES['B2']]}")
+    gate_prefill_check(tag, check)
+    assert check["window"] == WINDOW_FULL < check["ctx"], check
+    assert drained and len(eng.finished) == WINDOW_REQ
+    assert all(len(r.output) == WINDOW_NEW for r in eng.finished)
+    assert all(0 <= t < cfg.vocab_size for r in eng.finished
+               for t in r.output)
+    eng.kv.check_invariants()
+    assert n_pre == WINDOW_REQ and n_dec > 0
+    assert launches[NAMES["B3"]] == cfg.n_layers * n_pre, launches
+    assert launches[NAMES["B1"]] == launches[NAMES["B2"]] == 0, launches
+    return dict(window=WINDOW_FULL, launches=launches, wall_s=wall,
+                check_s=check_s[0], checks={"prefill": check},
+                tokens_per_s=gen / wall, prefill_ms_median=pmed,
+                decode_ms_median=dmed, decode_ms_p90=dp90, peak_gb=peak_gb,
+                prefill_calls=n_pre, decode_calls=n_dec,
+                tokens={r.rid: r.output for r in eng.finished})
 
 
 def profile_summary(prof, n_win, win_step0, steps, win_wall, mode,
@@ -3032,14 +3245,20 @@ def train_phase(dev, profile):
     ``SyntheticLM`` at seq 4096 and global batch 8, lr 3e-4, remat on).
     Gates: (1) the first step's loss and every leaf's gradient against a
     plain-attention re-run, relative L2 under GRAD_LIMIT between the
-    floor and the fault read in the same run; (2) exact B3 launches in that step: 2 forwards per
-    layer (remat) and one of each backward kernel; (3) 20 steps with
-    finite losses whose last 5 average below the first; (4) restart: 5
-    steps, a checkpoint, 5 more in a fresh ``train`` call from it, equal
-    to the 20-step run's first 10 losses within rtol 1e-4, atol 1e-5, and
-    the checkpoint's bf16 leaves bit-exact.  Records ms per step, tokens/s,
-    peak memory and the model FLOP share; with ``profile``, B3's device
-    time per step from the profiler's trace."""
+    floor and the fault read in the same run; (2) exact B3 launches in
+    that step: 2 forwards per layer (remat) and one of each backward
+    kernel; (3) 20 steps with finite losses whose last 5 average below
+    the first, served captured (``train`` on the card: the first step
+    run and captured, 19 replays of its CUDA graph) and then eagerly
+    (``graphs.disable_capture()``): the two runs' losses equal bit for
+    bit, the launches exact in each; (4) restart, captured: 5 steps, a
+    checkpoint, 5 more in a fresh ``train`` call from it (which captures
+    anew on the restored tensors), equal to the 20-step run's first 10
+    losses within rtol 1e-4, atol 1e-5, and the checkpoint's bf16 leaves
+    bit-exact.  Records for each 20-step run ms per step (median, p90),
+    tokens/s, peak memory, the model FLOP share, replays and the warm-up
+    and capture seconds; with ``profile``, B3's device time per step from
+    the profiler's trace."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3089,33 +3308,77 @@ def train_phase(dev, profile):
     del params, g_k, batch
     free("the checked step")
 
-    # (3): 20 steps; (4): restart from a checkpoint after 5
-    torch.cuda.reset_peak_memory_stats()
-    run = train(cfg, dcfg, TrainConfig(steps=TRAIN_STEPS, lr=TRAIN_LR,
-                                       device=str(dev)))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    losses, times = run["losses"], run["times"]
-    del run
-    free("the 20-step run")
-    if not (all(math.isfinite(x) for x in losses)
-            and statistics.mean(losses[-5:]) < losses[0]):
-        raise AssertionError(f"train: the loss did not learn: {losses}")
-    steady = sorted(times[1:])
-    med = statistics.median(steady)
-    p90 = steady[min(len(steady) - 1, int(0.9 * len(steady)))]
+    # (3): 20 steps captured (the step one CUDA graph, replayed), then the
+    # same 20 steps eagerly; (4): restart from a checkpoint after 5
+    from repro_torch.serving import graphs
     flops, attn_fwd = train_flops(cfg, n_params, tokens, layers_params)
+    runs = {}
+    for how in ("captured", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(fa_ops.LAUNCHES)
+        with (graphs.disable_capture() if how == "eager"
+              else contextlib.nullcontext()):
+            run = train(cfg, dcfg, TrainConfig(steps=TRAIN_STEPS,
+                                               lr=TRAIN_LR, device=str(dev)))
+        got = {k: v - before.get(k, 0) for k, v in fa_ops.LAUNCHES.items()}
+        steady = sorted(run["times"][1:])
+        med = statistics.median(steady)
+        p90 = steady[min(len(steady) - 1, int(0.9 * len(steady)))]
+        g = run["graphs"]
+        runs[how] = r = dict(
+            losses=run["losses"], step_s=run["times"],
+            step_ms_median=med * 1e3, step_ms_p90=p90 * 1e3,
+            tokens_per_s=tokens / med,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            flop_share=flops / med / PEAK_FLOPS["bfloat16"],
+            graphs=g["graphs"], replays=g["replays"],
+            warmup_s=sum(w for w, _ in g["capture_s"]),
+            capture_s=sum(c for _, c in g["capture_s"]),
+            launches_per_step={k: v / TRAIN_STEPS for k, v in got.items()
+                               if v})
+        del run
+        free(f"the {how} 20-step run")
+        losses = r["losses"]
+        log(f"train ({how}): {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (last 5 mean "
+            f"{statistics.mean(losses[-5:]):.4f}); {r['graphs']} graph, "
+            f"{r['replays']} replays, warm-up {r['warmup_s']:.2f} s + "
+            f"capture {r['capture_s']:.2f} s; step ms median "
+            f"{r['step_ms_median']:.1f} p90 {r['step_ms_p90']:.1f} (first "
+            f"{r['step_s'][0] * 1e3:.1f}), {r['tokens_per_s']:.0f} training "
+            f"tokens/s, {r['flop_share']:.3f} of 989 TFLOP/s; peak "
+            f"{r['peak_gb']:.1f} GB; B3 launches a step "
+            f"{r['launches_per_step']}")
+        if got != {k: TRAIN_STEPS * want.get(k, 0) for k in got}:
+            raise AssertionError(f"train ({how}): B3 launches {got} over "
+                                 f"{TRAIN_STEPS} steps, not {want} a step")
+        if not (all(math.isfinite(x) for x in losses)
+                and statistics.mean(losses[-5:]) < losses[0]):
+            raise AssertionError(f"train ({how}): the loss did not learn: "
+                                 f"{losses}")
+    cap = runs["captured"]
+    assert (cap["graphs"], cap["replays"]) == (1, TRAIN_STEPS - 1), cap
+    assert runs["eager"]["graphs"] == 0, runs["eager"]
+    n_equal = sum(a == b for a, b in zip(cap["losses"],
+                                         runs["eager"]["losses"]))
+    log(f"train: captured vs eager losses equal at {n_equal} of "
+        f"{TRAIN_STEPS} "
+        f"steps; step ms median {cap['step_ms_median']:.1f} against "
+        f"{runs['eager']['step_ms_median']:.1f}, peak "
+        f"{cap['peak_gb']:.1f} GB against {runs['eager']['peak_gb']:.1f}")
+    if n_equal != TRAIN_STEPS:
+        raise AssertionError(f"train: captured losses {cap['losses']} != "
+                             f"eager losses {runs['eager']['losses']}")
+    losses, times = cap["losses"], cap["step_s"]
+    med = cap["step_ms_median"] / 1e3
     out.update(losses=losses, step_s=times, step_ms_median=med * 1e3,
-               step_ms_p90=p90 * 1e3, tokens_per_s=tokens / med,
-               peak_gb=peak, model_flops=flops,
+               step_ms_p90=cap["step_ms_p90"], tokens_per_s=tokens / med,
+               peak_gb=cap["peak_gb"], model_flops=flops,
                attention_fwd_flops=attn_fwd,
-               flop_share=flops / med / PEAK_FLOPS["bfloat16"])
-    log(f"train: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f} (last 5 mean {statistics.mean(losses[-5:]):.4f});"
-        f" step ms median {med * 1e3:.1f} p90 {p90 * 1e3:.1f} (first "
-        f"{times[0] * 1e3:.1f}), {tokens / med:.0f} training tokens/s, peak "
-        f"{peak:.1f} GB; model FLOPs {flops:.3g} per step = "
-        f"{flops / med / 1e12:.1f} TFLOP/s, {out['flop_share']:.3f} of "
-        f"989 TFLOP/s")
+               flop_share=flops / med / PEAK_FLOPS["bfloat16"],
+               captured=cap, eager=runs["eager"])
+    log(f"train: model FLOPs {flops:.3g} per step = "
+        f"{flops / med / 1e12:.1f} TFLOP/s captured")
     ck = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     try:
@@ -3150,10 +3413,11 @@ def train_phase(dev, profile):
     out.update(restart_losses=both, restart_bit_equal=bit_equal,
                restart_s=restart_s)
     out["launches"] = dict(fa_ops.LAUNCHES)  # ... and ends here
-    log(f"train: B3 launches over the phase's {1 + TRAIN_STEPS + 10} "
+    log(f"train: B3 launches over the phase's {1 + 2 * TRAIN_STEPS + 10} "
         f"steps: {out['launches']}")
-    log(f"train: restart 5 + checkpoint + 5 == 10 straight within rtol "
-        f"1e-4, atol 1e-5; bit-equal: {bit_equal}; {len(same)} checkpoint "
+    log(f"train: restart 5 + checkpoint + 5 (each part captured anew) == "
+        f"10 straight within rtol 1e-4, atol 1e-5; bit-equal: {bit_equal}; "
+        f"{len(same)} checkpoint "
         f"leaves ({n_bf16} bf16) restored bit-exact; 15 steps with two "
         f"saves and a restore in {restart_s:.1f} s")
     free("the restart runs")
@@ -3898,6 +4162,9 @@ def main(argv=None) -> int:
     eager["qwen3-14b dense prefill"] = eager_phase(
         dev, args.profile, cfg, params, dense, prefill_mode="dense")
     free("the eager dense-prefill engine")
+    # the same weights with a sliding window on every layer: the dense route
+    windowed = window_phase(dev, cfg, params)
+    free("the windowed engine")
     # phase 12 on the same weights: the planned roles
     plan = plan_phase(dev, args.profile, cfg, params)
     del params
@@ -3962,7 +4229,8 @@ def main(argv=None) -> int:
     # backward), prefill_32k and decode_32k
     launch_steps = steps_phase(dev, args.profile)
 
-    runs = (fused, split, dense, *plan["runs"].values(), *dbrx.values(),
+    runs = (fused, split, dense, windowed, *plan["runs"].values(),
+            *dbrx.values(),
             *dense_cfgs.values(), *probe.values(), *families.values(),
             training, launch_steps)
     entries = [kernel_entry(kid, case, sum(r["launches"].get(NAMES[kid], 0)
@@ -3982,7 +4250,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "b1_cases": b1, "b2_cases": b2, "b3_cases": b3,
              "engine_fused": fused, "engine_split": split,
-             "engine_dense_prefill": dense, "engine_dbrx": dbrx,
+             "engine_dense_prefill": dense, "engine_window": windowed,
+             "engine_dbrx": dbrx,
              "engine_dense_configs": dense_cfgs, "engine_probe": probe,
              "engine_eager": eager,
              "plan": plan,

@@ -36,7 +36,10 @@ distinct shapes.  On the card the three paged calls capture one CUDA graph
 per shape and replay it on every later call of that shape
 (``serving.graphs``, the counterpart of the reference's ``jax.jit``;
 ``graphs.disable_capture()`` runs them eagerly); the dense oracle calls
-and the module probe run eagerly.  Every mode combination is ported.
+and the module probe run eagerly.  Every mode combination is ported.  A
+pure-GQA text config with one sliding window on every layer is served by
+the dense route whatever the modes (the paged paths take no window), as
+the reference's engine serves it.
 
 Telemetry, as in the reference: with ``EngineConfig.telemetry`` a
 :class:`Tracer` records nested admit / fused_step / prefill_chunk /
@@ -108,6 +111,31 @@ def _bucket0(n: int) -> int:
     """_bucket with a 0 bucket: the staging-exchange lane axis is usually
     empty (single-device rows), and 0 lanes must not round up to 1."""
     return 0 if n == 0 else _bucket(n)
+
+
+def _unserved(cfg: ModelConfig) -> str:
+    """What of ``cfg`` the reference's engine fails on, and where ("" if
+    it serves it).  Pure-GQA text configs are served; with a sliding
+    window (one window on every layer) by the dense route, as the
+    reference's engine takes it: its paged paths refuse windows."""
+    if cfg.attn_type == "mla" or cfg.xlstm_pattern:
+        return ("MLA or xLSTM layers (the paged cache asserts GQA: "
+                "repro/serving/kvcache.py:92)")
+    if cfg.attn_type != "gqa":
+        return f"attention {cfg.attn_type!r}"
+    if cfg.ssm_state:
+        return ("SSM-hybrid layers (decode_step finds no 'conv' state in "
+                "the engine's dense cache)")
+    if cfg.frontend != "text":
+        return (f"the {cfg.frontend!r} frontend (the dense prefill passes "
+                f"tokens only: KeyError 'image_embeds' or 'frames')")
+    if cfg.is_encoder_only:
+        return "an encoder-only stack (it has no decode step)"
+    if cfg.sliding_window and len(T.layer_groups(cfg)) > 1:
+        return ("windowed layers beside global ones (the engine's dense "
+                "cache holds one layer group: IndexError at "
+                "repro/models/transformer.py:962)")
+    return ""
 
 
 @dataclasses.dataclass
@@ -327,13 +355,13 @@ class InferenceEngine:
         if ecfg.step_mode not in ("fused", "split"):
             raise ValueError(f"step_mode={ecfg.step_mode!r}: 'fused' or "
                              f"'split'")
-        if not T.supports_fused_step(cfg):
+        why = _unserved(cfg)
+        if why:
             raise NotImplementedError(
-                f"{cfg.name}: the engine serves pure-GQA, full-attention, "
-                f"token-frontend configs, as the reference's does; MLA, "
-                f"SSM-hybrid, xLSTM, sliding-window and stub-frontend "
-                f"configs run through the model functions (prefill, "
-                f"decode_step, forward_hidden; see ROADMAP Queue A item 7)")
+                f"{cfg.name}: the engine does not serve {why}, nor can the "
+                f"reference's; such configs run through the model "
+                f"functions (prefill, decode_step, forward_hidden; see "
+                f"ROADMAP Queue C)")
 
     # --------------------------------------------------------------- cluster
     # ``cluster`` is a property so the device_id -> Device map the modeled-

@@ -1,16 +1,21 @@
-"""One captured CUDA graph per argument shape for the engine's paged calls:
-the port's counterpart of the reference's ``jax.jit(...,
-donate_argnums=(1, 2))`` around ``_paged_fn``, ``_chunk_fn`` and
-``_fused_fn`` (``repro/serving/engine.py``).
+"""One captured CUDA graph per argument shape: the port's counterpart of
+the reference's ``jax.jit`` where the reference runs a jitted function.
+The engine's paged calls (``jax.jit(..., donate_argnums=(1, 2))`` around
+``_paged_fn``, ``_chunk_fn`` and ``_fused_fn``, ``repro/serving/
+engine.py``), the train step (``@jax.jit step_fn``, ``repro/training/
+train_loop.py``) and ``profile_attention``'s timed call (``repro/core/
+profiler.py``) go through :class:`CapturedFn`.
 
-jit compiles a call once per bucket shape and runs the compiled program on
-every later call of that shape.  :class:`CapturedFn` does the same with
-CUDA graphs.  The first call of a shape runs the step for real on a side
-stream (which builds and loads the kernels' libraries and fills their host
-caches), then captures it on that stream.  Every later call of the shape
-copies its host arrays into the shape's static inputs (one pinned staging
-buffer, one copy) and replays the graph: every kernel of the step in one
-host call.  The pools are updated in place, as jit's donated buffers are.
+jit compiles a call once per argument shape and runs the compiled program
+on every later call of that shape.  :class:`CapturedFn` does the same with
+CUDA graphs.  The first call of a shape runs the function for real on a
+side stream (which builds and loads the kernels' libraries and fills
+their host caches), then captures it on that stream.  Every later call of
+the shape copies its host arrays into the shape's static inputs (one
+pinned staging buffer, one copy) and replays the graph: every kernel of
+the call in one host call.  Device tensors passed in (the params and
+pools, the optimizer state) are read and updated in place, as jit's
+donated buffers are.
 
 What a replay must keep:
 
@@ -20,18 +25,21 @@ What a replay must keep:
   with the shape and added on every replay.  Every dict in ``TALLIES``
   is kept so; one added there while a shape is captured gets its replays.
 * Memory.  A graph reads and writes the addresses it was captured on: its
-  static inputs and outputs, the params and the pools.  (The paged
-  kernels' TMA tensor maps, encoded on the host from the pool base
-  pointers, are baked in by value.)  A call whose params or pools are
-  other tensors than the captured ones raises rather than replay over
-  memory it does not own.  The static outputs are the same tensors on
-  every replay of a shape: read them before the next call of that shape.
+  static inputs and outputs and the device tensors passed in (params,
+  pools, optimizer state).  (The kernels' TMA tensor maps, encoded on the
+  host from base pointers, are baked in by value.)  A call whose device
+  tensors are other tensors than the captured ones raises rather than
+  replay over memory it does not own.  The static outputs are the same
+  tensors on every replay of a shape: read them before the next call of
+  that shape.  A function that keeps state across calls keeps it in
+  tensors it updates in place (AdamW's step counter), never in new ones.
 * The decode tile's tickets (``paged_attention.ops._tickets``), cached
   per stream and kept for good once made: the warm-up on the capture
   stream makes them, so the capture finds them.
 
-Every graph of one engine allocates from one memory pool
-(:class:`CudaGraphs`): replays run one at a time on the current stream.
+Every graph of one :class:`CudaGraphs` (one engine's, one training run's)
+allocates from one memory pool: replays run one at a time on the current
+stream.
 
 On CPU tensors, and inside :func:`disable_capture` (the counterpart of
 ``jax.disable_jit()``), the wrapper calls the function directly.  There is
@@ -43,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,9 +80,11 @@ def disable_capture():
 
 
 def _leaves(tree) -> list:
-    """The tensor leaves of nested dicts, lists and tuples."""
+    """The tensor leaves of nested dicts (in key order, as the shape key
+    takes them: a restored tree may hold its keys in another order),
+    lists and tuples."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for k in sorted(tree, key=repr) for x in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
@@ -85,7 +95,7 @@ def _ptrs(tree) -> Tuple[int, ...]:
 
 
 class CudaGraphs:
-    """What the captured wrappers of one engine share on ``device``: one
+    """What the captured wrappers of one owner share on ``device``: one
     memory pool for every graph, the side stream each shape is warmed up
     and captured on, and the pinned buffer host arrays are staged in.
     Nothing is allocated before the first capture."""
@@ -151,10 +161,10 @@ class CudaGraphs:
 @dataclasses.dataclass
 class _Entry:
     """One captured shape."""
-    inputs: torch.Tensor             # the static inputs' bytes
+    inputs: Optional[torch.Tensor]   # the static inputs' bytes
     offsets: Tuple[int, ...]         # each host array's offset in them
     views: Tuple[torch.Tensor, ...]  # the static inputs
-    ptrs: Tuple[int, ...]            # the captured params' and pools'
+    ptrs: Tuple[int, ...]            # the captured device tensors'
     graph: object = None
     outputs: object = None           # the static outputs
     # (tally, what one replay adds to it)
@@ -163,11 +173,11 @@ class _Entry:
 
 
 class CapturedFn(ShapeCountingFn):
-    """Wraps ``fn(params, kpools, vpools, *inputs)``, a paged call whose
-    first three arguments are device tensor trees and the rest host arrays
-    (numpy): one captured graph per argument-shape key
-    (``metrics._shape_key``), replayed on every later call of that key;
-    see the module docstring.
+    """Wraps ``fn(*fixed, *inputs)``, whose first ``fixed`` arguments are
+    device tensor trees (a paged call's params, kpools and vpools: 3) and
+    the rest host arrays (numpy): one captured graph per argument-shape
+    key (``metrics._shape_key``), replayed on every later call of that
+    key; see the module docstring.
 
     ``counter`` counts the distinct keys (``_cache_size()``), as jit counts
     compilations: on the card each is one capture.  ``replays`` counts the
@@ -175,9 +185,11 @@ class CapturedFn(ShapeCountingFn):
     ``graphs`` (:class:`CudaGraphs`) decides whether calls are captured:
     on CPU tensors they are not."""
 
-    def __init__(self, fn, counter: Counter, graphs: CudaGraphs):
+    def __init__(self, fn, counter: Counter, graphs: CudaGraphs,
+                 fixed: int = 3):
         super().__init__(fn, counter)
         self.graphs = graphs
+        self.fixed = fixed
         self.entries: Dict[tuple, _Entry] = {}
         self.replays = 0
         self.capture_s: List[Tuple[float, float]] = []
@@ -187,7 +199,7 @@ class CapturedFn(ShapeCountingFn):
 
     def __call__(self, *args):
         key = self._count((args, {}))
-        fixed, host = args[:3], args[3:]
+        fixed, host = args[:self.fixed], args[self.fixed:]
         if self._eager():
             dev = self.graphs.device
             return self.fn(*fixed, *(torch.from_numpy(a).to(dev)
@@ -203,6 +215,8 @@ class CapturedFn(ShapeCountingFn):
 
     def _stage(self, entry: _Entry, host) -> None:
         """The host arrays into the entry's static inputs: one copy."""
+        if not host:
+            return
         buf = self.graphs.host_buffer(entry.inputs.numel())
         for a, off in zip(host, entry.offsets):
             a = np.ascontiguousarray(a)
@@ -217,7 +231,8 @@ class CapturedFn(ShapeCountingFn):
         for a in host:                   # 16-byte aligned slices
             offsets.append(n)
             n += -(-a.nbytes // 16) * 16
-        inputs = torch.empty(max(n, 16), dtype=torch.uint8, device=g.device)
+        inputs = (torch.empty(max(n, 16), dtype=torch.uint8, device=g.device)
+                  if host else None)
         views = tuple(inputs[o:o + a.nbytes].view(torch.from_numpy(a).dtype)
                       .view(a.shape) for a, o in zip(host, offsets))
         entry = _Entry(inputs, tuple(offsets), views, _ptrs(fixed))
@@ -246,8 +261,9 @@ class CapturedFn(ShapeCountingFn):
     def _replay(self, entry: _Entry, fixed, host):
         if _ptrs(fixed) != entry.ptrs:
             raise RuntimeError(
-                "the params or pools are not the tensors this shape was "
-                "captured on: its graph reads and writes the captured ones")
+                "the device tensors passed in are not the ones this shape "
+                "was captured on: its graph reads and writes the captured "
+                "ones")
         self._stage(entry, host)
         entry.graph.replay()
         for t, add in entry.tallies:

@@ -8,9 +8,11 @@ corrections ``1 - b ** step`` with the step as fp32, ``delta = mhat /
 (sqrt(vhat) + eps) + wd * p`` with decay on every leaf, then casts back to
 the parameter and moment dtypes.  ``torch.optim.AdamW`` is not this
 function: it decays the weights before the moment update and, on bf16
-parameters, keeps bf16 state and computes in bf16.  Parameters and moments
-are updated in place (the returned trees hold the given tensors), so a
-step needs no second copy of the model.
+parameters, keeps bf16 state and computes in bf16.  Parameters, moments
+and the step counter are updated in place (the returned trees hold the
+given tensors), so a step needs no second copy of the model, and a
+captured step (a CUDA graph, which reads and writes the tensors it was
+captured on) advances the counter on every replay.
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ def adamw_update(params: Params, grads: Params, state: OptState, *,
                  eps: float = 1e-8, weight_decay: float = 0.1,
                  grad_clip: float = 1.0
                  ) -> Tuple[Params, OptState, torch.Tensor]:
-    """One AdamW step with global-norm clipping.  Returns (params, the new
-    state, the gradient's global norm (fp32 scalar) before clipping)."""
-    step = state["step"] + 1
+    """One AdamW step with global-norm clipping.  Returns (params, the
+    state (``state``'s tensors, ``step`` advanced in place), the gradient's
+    global norm (fp32 scalar) before clipping)."""
+    step = state["step"].add_(1)
     flat_p = flatten(params)[0]
     flat_g = flatten(grads)[0]
     flat_m = flatten(state["m"])[0]

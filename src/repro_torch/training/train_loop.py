@@ -7,7 +7,13 @@ time, the event is logged (on a real cluster the Parallelizer would be
 re-consulted — here the hook records the decision for tests).  A step
 (``train_step``) is the reference's jitted ``step_fn``: the loss and its
 gradient by autograd (every attention layer through the flash-attention
-kernel and its backward on the card), then AdamW.
+kernel and its backward on the card), then AdamW.  On the card ``train``
+captures the step as one CUDA graph (``serving.graphs.CapturedFn``, the
+counterpart of ``@jax.jit``): the first step runs for real and is then
+captured, every later step copies its batch into the graph's static
+inputs and replays it; the parameters and the optimizer state are
+updated in place.  ``graphs.disable_capture()`` (and CPU tensors) run
+every step eagerly.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.graphs import CapturedFn, CudaGraphs
+from repro_torch.telemetry.metrics import Counter
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import adamw_init, adamw_update
@@ -65,8 +73,11 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
     ``tcfg.ckpt_dir`` (if any) on ``tcfg.device``.  Starting weights:
     ``params`` (copied; the lockstep tests start from the reference's),
     else ``init_params(cfg, tcfg.seed)``.  Returns {"losses", "events"} as
-    the reference does, plus each step's seconds ("times") and the final
-    "params" and "opt"."""
+    the reference does, plus each step's seconds ("times"), the final
+    "params" and "opt", and "graphs": the captured step's graphs (one per
+    batch shape; 0 when every step ran eagerly), replays and each
+    capture's (warm-up s, capture s).  A restore hands the step new
+    tensors, so each call captures its own graph after it."""
     dev = resolve(tcfg.device)
     if params is None:
         params = init_params(cfg, tcfg.seed, dev)
@@ -83,17 +94,24 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
             start_step = step
 
     data = SyntheticLM(data_cfg)
+    names: List[str] = []                # the batch's keys, in call order
+
+    def run_step(params, opt, *arrays):
+        # tokens as int64 for the embedding lookup and the label gather
+        batch = {k: a.long() for k, a in zip(names, arrays)}
+        return train_step(cfg, params, opt, batch, tcfg.lr)
+    step_fn = CapturedFn(run_step, Counter("train/captures"),
+                         CudaGraphs(dev), fixed=2)
     losses: List[float] = []
     times: List[float] = []
     events: List[str] = []
     ewma = None
     for step in range(start_step, tcfg.steps):
-        # tokens as int64 for the embedding lookup and the label gather
-        batch = {k: torch.from_numpy(v).to(dev, torch.int64)
-                 for k, v in data.batch_at(step).items()}
+        host = data.batch_at(step)
+        names[:] = sorted(host)
         t0 = time.perf_counter()
-        params, opt, loss, gnorm = train_step(cfg, params, opt, batch,
-                                              tcfg.lr)
+        params, opt, loss, gnorm = step_fn(params, opt,
+                                           *(host[k] for k in names))
         loss = float(loss)                   # synchronises with the card
         dt = time.perf_counter() - t0
         if ewma is None:
@@ -109,4 +127,7 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
     if tcfg.ckpt_dir:
         ckpt.save(tcfg.ckpt_dir, tcfg.steps, {"params": params, "opt": opt})
     return {"losses": losses, "events": events, "times": times,
-            "params": params, "opt": opt}
+            "params": params, "opt": opt,
+            "graphs": {"graphs": len(step_fn.entries),
+                       "replays": step_fn.replays,
+                       "capture_s": list(step_fn.capture_s)}}

@@ -1403,3 +1403,83 @@ def test_replayed_bf16_fused_steps_repeat_the_eager_steps_bit_for_bit(cuda):
         ops.paged_attention(*dargs)
     assert {t: (len(c[1].entries), c[1].replays) for t, c in calls.items()} \
         == {"wgmma": (1, 2), "tma": (1, 1), "warp": (1, 1)}
+
+
+# ------------------------- the train step and profile_attention captured
+def card_train(cfg, steps, **tcfg):
+    """``train`` of reduced ``cfg`` on the card from the CPU's seeded
+    weights (seq 80, batch 4, lr 1e-3), with its B3 launches."""
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.weights import init_params
+    before = dict(fa_ops.LAUNCHES)
+    out = train(cfg, DataConfig(cfg.vocab_size, seq_len=80, global_batch=4),
+                TrainConfig(steps=steps, lr=1e-3, device="cuda", **tcfg),
+                params=init_params(cfg, 0, device="cpu"))
+    out["launches"] = {k: v - before.get(k, 0)
+                       for k, v in fa_ops.LAUNCHES.items()}
+    return out
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "dbrx-132b"])
+def test_captured_training_on_the_card_equals_eager(cuda, name):
+    """Reduced fp32 (dh 64) for 5 steps: captured (one graph, 4 replays)
+    against ``disable_capture()``: equal losses and parameters bit for
+    bit, and exact launch counts over the replays."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving import graphs
+    from repro_torch.training.tree import flatten
+    cfg = dataclasses.replace(smoke_config(name), head_dim=64)
+    got = card_train(cfg, 5)
+    with graphs.disable_capture():
+        want = card_train(cfg, 5)
+    assert got["graphs"]["graphs"] == 1 and got["graphs"]["replays"] == 4
+    assert got["losses"] == want["losses"]
+    assert got["launches"] == want["launches"] == {
+        k: 5 * cfg.n_layers * (2 if cfg.remat and k == "flash_attention"
+                               else 1) for k in fa_ops.LAUNCHES
+        if k == "flash_attention" or k in fa_ops.BWD_KERNELS}
+    for a, b in zip(flatten(got["params"])[0], flatten(want["params"])[0]):
+        assert torch.equal(a, b)
+
+
+def test_a_restore_on_the_card_captures_anew(cuda, tmp_path):
+    """3 captured steps and a checkpoint, then 3 more captured on the
+    restored tensors: the 6 losses equal 6 straight captured steps'."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    a = card_train(cfg, 3, ckpt_dir=str(tmp_path), ckpt_every=3)
+    b = card_train(cfg, 6, ckpt_dir=str(tmp_path), ckpt_every=3)
+    straight = card_train(cfg, 6)
+    assert b["graphs"]["graphs"] == 1 and b["graphs"]["replays"] == 2
+    assert a["losses"] + b["losses"] == straight["losses"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_profile_attention_replay_equals_the_eager_call(cuda, dtype):
+    """A few grid points: each replay's output equals ``decode_attn``
+    eagerly, bit for bit; the captured and eager samples cover the same
+    grid with positive times."""
+    from repro_torch.core import profiler
+    from repro_torch.serving import graphs
+    from repro_torch.telemetry.metrics import Counter
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for h, ctx in ((1, 64), (8, 512), (24, 1536)):
+        q, k, v = (torch.randn(s, generator=g, dtype=dtype, device=cuda)
+                   for s in ((4, h, 1, 128), (4, h, ctx, 128),
+                             (4, h, ctx, 128)))
+        call = graphs.CapturedFn(profiler.decode_attn, Counter("c"),
+                                 graphs.CudaGraphs(cuda))
+        call(q, k, v)
+        got = call(q, k, v).clone()
+        assert call.replays == 1
+        assert torch.equal(got, profiler.decode_attn(q, k, v))
+    kw = dict(head_dim=128, head_grid=(1, 8), ctx_grid=(64, 1536),
+              dtype=dtype, device=cuda)
+    got = profiler.profile_attention(**kw)
+    with graphs.disable_capture():
+        eager = profiler.profile_attention(**kw)
+    assert [s[:2] for s in got] == [s[:2] for s in eager]
+    assert all(t > 0 for *_, t in got + eager)

@@ -110,7 +110,7 @@ def test_split_schedule_is_ported_and_unknown_modes_refused():
 
 
 @pytest.mark.parametrize("override", [
-    dict(sliding_window=16),
+    dict(sliding_window=16, global_layers=(0,)),
     dict(attn_type="mla", q_lora_rank=32, kv_lora_rank=16,
          qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
          head_dim=24),
