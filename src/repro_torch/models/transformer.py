@@ -658,8 +658,8 @@ def paged_fused_step_traced(cfg: ModelConfig, params: Params,
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Instrumented twin of ``paged_fused_step`` (see
-    ``paged_decode_step_traced``); the engine adds proportional
-    ``fused/<phase>`` spans for the call's decode and prefill shares."""
+    ``paged_decode_step_traced``): decode and prefill rows run in the one
+    call, under the one set of module spans."""
     assert supports_fused_step(cfg), "config not supported by fused step"
     return _paged_chunk_forward_traced(cfg, params, kpool, vpool,
                                        block_tables, lengths, starts,
@@ -717,18 +717,30 @@ def _pool_exchange_out(kpools: Pools, vpools: Pools, anchor: int,
 
 
 def _on_anchor(kpools: Pools, vpools: Pools, anchor: int,
-               anchor_sink: int, exchange, step):
+               anchor_sink: int, exchange, step, marks=None):
     """Run ``step(anchor kpool, anchor vpool) -> logits`` over per-device
     pool shards: stage remote pages into the anchor pool, run the
     single-pool step on it, write dirty staged pages back.  ``exchange``
-    is ``(g_dev, g_src, g_dst, w_dev, w_src, w_dst)``.
-    Returns (logits, kpools, vpools); the pools are updated in place."""
+    is ``(g_dev, g_src, g_dst, w_dev, w_src, w_dst)``.  ``marks``, four
+    timing events or None, are recorded on the current stream at the
+    start, after the exchange in, before the exchange out and at the end
+    (``serving.graphs.CallClock``; inside a capture each is a node of the
+    graph).  Returns (logits, kpools, vpools); the pools are updated in
+    place."""
     g_dev, g_src, g_dst, w_dev, w_src, w_dst = exchange
+    if marks is not None:
+        marks[0].record()
     ak, av = _pool_exchange_in(kpools, vpools, anchor, anchor_sink,
                                g_dev, g_src, g_dst)
+    if marks is not None:
+        marks[1].record()
     logits = step(ak, av)
+    if marks is not None:
+        marks[2].record()
     kpools, vpools = _pool_exchange_out(kpools, vpools, anchor, anchor_sink,
                                         w_dev, w_src, w_dst)
+    if marks is not None:
+        marks[3].record()
     return logits, kpools, vpools
 
 
@@ -736,7 +748,7 @@ def sharded_fused_step(cfg: ModelConfig, params: Params,
                        kpools: Pools, vpools: Pools, anchor: int,
                        anchor_sink: int, g_dev, g_src, g_dst, w_dev, w_src,
                        w_dst, block_tables, lengths, starts, write_slots,
-                       write_offs, tokens, last_idx):
+                       write_offs, tokens, last_idx, marks=None):
     """``paged_fused_step`` over per-device pool shards.  Block tables and
     write slots are ANCHOR-pool indices built by ``PoolStepPlan``.
     Returns (logits, kpools, vpools); the pools are updated in place."""
@@ -746,14 +758,15 @@ def sharded_fused_step(cfg: ModelConfig, params: Params,
         (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
         lambda ak, av: paged_fused_step(
             cfg, params, ak, av, block_tables, lengths, starts, write_slots,
-            write_offs, tokens, last_idx)[0])
+            write_offs, tokens, last_idx)[0],
+        marks)
 
 
 def sharded_decode_step(cfg: ModelConfig, params: Params,
                         kpools: Pools, vpools: Pools, anchor: int,
                         anchor_sink: int, g_dev, g_src, g_dst, w_dev, w_src,
                         w_dst, block_tables, lengths, write_slot, write_off,
-                        tokens, pos):
+                        tokens, pos, marks=None):
     """``paged_decode_step`` over per-device pool shards; the writeback
     lanes carry the remote rows' decode-token page back to its shard.
     Returns (logits, kpools, vpools); the pools are updated in place."""
@@ -762,14 +775,16 @@ def sharded_decode_step(cfg: ModelConfig, params: Params,
         (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
         lambda ak, av: paged_decode_step(
             cfg, params, ak, av, block_tables, lengths, write_slot,
-            write_off, tokens, pos)[0])
+            write_off, tokens, pos)[0],
+        marks)
 
 
 def sharded_prefill_chunk(cfg: ModelConfig, params: Params,
                           kpools: Pools, vpools: Pools, anchor: int,
                           anchor_sink: int, g_dev, g_src, g_dst, w_dev,
                           w_src, w_dst, block_tables, lengths, starts,
-                          write_slots, write_offs, tokens, last_idx):
+                          write_slots, write_offs, tokens, last_idx,
+                          marks=None):
     """``paged_prefill_chunk`` over per-device pool shards.
     Returns (logits, kpools, vpools); the pools are updated in place."""
     return _on_anchor(
@@ -777,7 +792,8 @@ def sharded_prefill_chunk(cfg: ModelConfig, params: Params,
         (g_dev, g_src, g_dst, w_dev, w_src, w_dst),
         lambda ak, av: paged_prefill_chunk(
             cfg, params, ak, av, block_tables, lengths, starts, write_slots,
-            write_offs, tokens, last_idx)[0])
+            write_offs, tokens, last_idx)[0],
+        marks)
 
 
 def sharded_fused_step_traced(cfg: ModelConfig, params: Params,

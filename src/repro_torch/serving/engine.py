@@ -41,14 +41,22 @@ pure-GQA text config with one sliding window on every layer is served by
 the dense route whatever the modes (the paged paths take no window), as
 the reference's engine serves it.
 
-Telemetry, as in the reference: with ``EngineConfig.telemetry`` a
-:class:`Tracer` records nested admit / fused_step / prefill_chunk /
-paged_decode / rebalance spans (plus modeled module spans on a
-simulated-clock track).  ``trace_modules`` (which needs ``telemetry``)
-runs the per-module probe: the paged calls go through their traced
-twins (``transformer.sharded_*_traced``), whose device-synchronised
-embed / attention / mlp / lm_head spans close the measured calibration
-loop — the attention time, apportioned over the loaded devices, feeds
+Telemetry: with ``EngineConfig.telemetry`` a :class:`Tracer` records the
+reference's nested admit / fused_step / prefill_chunk / paged_decode /
+rebalance spans (plus modeled module spans on a simulated-clock track),
+and beside them the leaf spans that cover the rest of each ``step``'s
+host time (:data:`HOST_SPANS`): ``pack`` (the rows, the step plan, block
+tables and exchange lanes of one paged call), the call's ``graph/replay``
+or ``graph/capture`` (``serving.graphs``) and ``wait`` (the host blocked
+on the device), ``commit`` (sampling and the tokens' bookkeeping) and
+``balance`` (the rebalance check, the cost model, the hauler and the
+simulated clock).  On the card each paged call then also records
+``graphs.CallClock``'s events, captured into its graph, and its span
+carries the call's ``device_ms`` and ``exchange_ms``.  ``trace_modules``
+(which needs ``telemetry``) runs the per-module probe: the paged calls
+go through their traced twins (``transformer.sharded_*_traced``), whose
+device-synchronised embed / attention / mlp / lm_head spans close the
+measured calibration loop — the attention time, apportioned over the loaded devices, feeds
 the ``attn/device/<id>`` gauges that ``maybe_rebalance`` recalibrates
 the dispatcher from; the dense-module time recalibrates the roofline
 efficiency of the simulated clock; the timed host-to-device upload
@@ -82,11 +90,16 @@ from repro_torch.core.profiler import (analytic_attention_model,
 from repro_torch.device import resolve
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.graphs import CapturedFn, CudaGraphs
+from repro_torch.serving.graphs import CallClock, CapturedFn, CudaGraphs
 from repro_torch.serving.kvcache import PagedHeadCache
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.telemetry import (MetricsRegistry, MetricsView, Tracer,
                                    count_recompiles)
+
+
+# the spans the engine records beyond the reference's (module docstring)
+HOST_SPANS = ("pack", "graph/replay", "graph/capture", "wait", "commit",
+              "balance")
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -272,7 +285,6 @@ class InferenceEngine:
         reg.gauge("prefill/chunk_now", fn=lambda: float(self._chunk_now))
         self._h_ttft = reg.histogram("ttft_s")
         self._h_tpot = reg.histogram("tpot_s")
-        self._h_step = reg.histogram("step_latency_s")
         self._h_attn_mod = reg.histogram("attn_module_s")
         self._h_dense_mod = reg.histogram("dense_module_s")
         self._g_h2d_gbps = reg.gauge("xfer/h2d_gbps")
@@ -320,24 +332,31 @@ class InferenceEngine:
         # the same model call (see transformer.sharded_decode_step).  The
         # paged calls take the params, the pools and the step's host
         # arrays; on the card each captures one graph per shape into the
-        # engine's one graph pool
+        # engine's one graph pool.  With telemetry on the card each call
+        # also records the call clock's events (captured into its graph)
         anchor, asink = self.kv.anchor, self.kv.sink
-        self._graphs = CudaGraphs(self.device)
+        self._graphs = CudaGraphs(self.device, self.tracer)
+        self._clock = (CallClock() if engine_cfg.telemetry
+                       and self.device.type == "cuda" else None)
+        marks = self._clock.events if self._clock is not None else None
         self._paged_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, ws_, wt, bt, ln, ws, wo, t,
             pos: T.sharded_decode_step(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, ws_, wt,
-                bt, ln, ws, wo, t, pos), self._c_recompiles, self._graphs)
+                bt, ln, ws, wo, t, pos, marks), self._c_recompiles,
+            self._graphs)
         self._chunk_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
             t, li: T.sharded_prefill_chunk(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
-                bt, ln, st, ws, wo, t, li), self._c_recompiles, self._graphs)
+                bt, ln, st, ws, wo, t, li, marks), self._c_recompiles,
+            self._graphs)
         self._fused_fn = CapturedFn(
             lambda p, kp, vp, gd, gs, gt, wd, wsb, wt, bt, ln, st, ws, wo,
             t, li: T.sharded_fused_step(
                 cfg, p, kp, vp, anchor, asink, gd, gs, gt, wd, wsb, wt,
-                bt, ln, st, ws, wo, t, li), self._c_recompiles, self._graphs)
+                bt, ln, st, ws, wo, t, li, marks), self._c_recompiles,
+            self._graphs)
         self._decode_shapes: Set[Tuple[int, int, int]] = set()
         self._prefill_shapes: Set[Tuple[int, int, int, int]] = set()
         # fused mode needs BOTH paged paths (decode rows and prefill rows
@@ -446,17 +465,29 @@ class InferenceEngine:
         self._attribute_module_times(a1 - a0, d1 - d0)
         return logits
 
-    def _paged_call(self, fn: CapturedFn, traced_fn, dev,
-                    reqs: List[Request]):
-        """One paged model call on the pools: through its captured wrapper
-        ``fn``, or under the module probe through its traced twin
-        ``traced_fn`` (see ``_probe_call``).  ``dev`` is what ``_upload``
-        gave for the call's host arrays.  Returns the logits."""
-        if self._trace_modules:
-            return self._probe_call(traced_fn, dev, reqs)
-        kps, vps = self.kv.pools()
-        logits, kps, vps = fn(self.params, kps, vps, *dev)
-        self.kv.install_pools(kps, vps)
+    def _paged_call(self, name: str, args: Dict, fn: CapturedFn, traced_fn,
+                    dev, reqs: List[Request]):
+        """One paged model call on the pools under its span ``name``
+        (``args``): through its captured wrapper ``fn`` (``graph/replay``
+        or ``graph/capture`` on the card), or under the module probe
+        through its traced twin ``traced_fn`` (see ``_probe_call``); then
+        ``wait`` until the device has finished it.  A call through the
+        graphs (a shape's first, real run or a replay) adds the call
+        clock's ``device_ms`` and ``exchange_ms`` to ``args``.  ``dev`` is what ``_upload`` gave for the call's host
+        arrays.  Returns the logits."""
+        tr = self.tracer
+        with tr.span(name, args=args):
+            if self._trace_modules:
+                logits = self._probe_call(traced_fn, dev, reqs)
+            else:
+                kps, vps = self.kv.pools()
+                logits, kps, vps = fn(self.params, kps, vps, *dev)
+                self.kv.install_pools(kps, vps)
+            with tr.span("wait"):
+                tr.sync(logits)
+                if (self._clock is not None and not self._trace_modules
+                        and not fn._eager()):
+                    args.update(self._clock.read())
         return logits
 
     def _upload(self, host: Tuple[np.ndarray, ...], nbytes: int = 0
@@ -660,9 +691,24 @@ class InferenceEngine:
         directly in the pools; a request whose chunk completes its prompt
         (incl. preemption-replay tokens) samples its first token and joins
         this step's decode batch."""
-        rows = [(r, r.prompt + r.output) for r in self.prefilling]
-        if not rows:
+        if not self.prefilling:
             return
+        tr = self.tracer
+        note: Dict[str, int] = {}
+        with tr.span("pack", args=note):
+            spans, dev, h2d, args = self._pack_prefill_chunk(note)
+        logits = self._paged_call("prefill_chunk", args, self._chunk_fn,
+                                  T.sharded_prefill_chunk_traced, dev,
+                                  [r for r, _, _ in spans])
+        with tr.span("commit"):
+            self._commit_prefill_chunk(spans, logits, h2d)
+
+    def _pack_prefill_chunk(self, note: Dict[str, int]):
+        """The prefill-chunk call's host arrays (the ``pack`` span, whose
+        args ``note`` takes): (the rows as (request, its tokens, chunk
+        length), what the call takes, the upload's bytes, the call span's
+        args)."""
+        rows = [(r, r.prompt + r.output) for r in self.prefilling]
         cfg = self.cfg
         Hkv, page = cfg.n_kv_heads, self.kv.page
         chunk = self.ecfg.prefill_chunk
@@ -702,12 +748,13 @@ class InferenceEngine:
         h2d = sum(a.nbytes for a in host)
         dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
-        with self.tracer.span("prefill_chunk",
-                              args={"batch": Bp, "chunk": Cp, "pages": Pp}):
-            logits = self._paged_call(self._chunk_fn,
-                                      T.sharded_prefill_chunk_traced, dev,
-                                      [r for r, _, _ in spans])
-            self.tracer.sync(logits)
+        note.update(rows=len(spans), gather_lanes=plan.gather_count)
+        return spans, dev, h2d, {"batch": Bp, "chunk": Cp, "pages": Pp}
+
+    def _commit_prefill_chunk(self, spans, logits, h2d: int) -> None:
+        """The prefill-chunk call's bookkeeping (the ``commit`` span): the
+        counters, each row's progress, and the first token of each row
+        whose prompt the chunk completed."""
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
         self._c_pre_h2d.inc(h2d)
@@ -744,11 +791,28 @@ class InferenceEngine:
     def _decode_batch_paged(self, reqs: List[Request]) -> None:
         """ONE paged decode call for every running request: block tables
         over the pools, the new token's K/V written in place."""
+        tr = self.tracer
+        note: Dict[str, int] = {}
+        with tr.span("pack", args=note):
+            packed = self._pack_decode(reqs, note)
+        if packed is None:
+            return
+        active, dev, h2d, args = packed
+        logits = self._paged_call("paged_decode", args, self._paged_fn,
+                                  T.sharded_decode_step_traced, dev, active)
+        with tr.span("commit"):
+            self._commit_decode(active, logits, h2d)
+
+    def _pack_decode(self, reqs: List[Request], note: Dict[str, int]):
+        """The decode call's host arrays (the ``pack`` span, whose args
+        ``note`` takes): (its rows, what the call takes, the upload's
+        bytes, the call span's args), or None when no row kept its
+        reservation."""
         cfg = self.cfg
         Hkv, page = cfg.n_kv_heads, self.kv.page
         active = self._reserve_decode_rows(reqs)
         if not active:
-            return
+            return None
         B = len(active)
         Bp = _bucket(B)
         maxp = max(-(-r.ctx_len // page) for r in active)
@@ -778,14 +842,16 @@ class InferenceEngine:
         h2d = sum(a.nbytes for a in host)
         dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
-        with self.tracer.span("paged_decode",
-                              args={"batch": Bp, "pages": Pp}):
-            logits = self._paged_call(self._paged_fn,
-                                      T.sharded_decode_step_traced, dev,
-                                      active)
-            self.tracer.sync(logits)
+        note.update(rows=B, gather_lanes=plan.gather_count)
+        return active, dev, h2d, {"batch": Bp, "pages": Pp}
+
+    def _commit_decode(self, active: List[Request], logits, h2d: int
+                       ) -> None:
+        """The decode call's bookkeeping (the ``commit`` span): the
+        counters, each row's token and context, finished requests."""
         self._c_model_calls.inc()
         self._c_h2d.inc(h2d)
+        B = len(active)
         nxt = logits[:B].argmax(dim=-1).to(torch.int32).cpu().numpy()
         # the whole padded logits array is metered, as the reference does
         self._c_d2h.inc(logits.numel() * logits.element_size())
@@ -864,6 +930,36 @@ class InferenceEngine:
         of ≤ ``chunk_now`` prompt tokens), packed under the per-step token
         budget.  Decode rows are always admitted; prefill tokens fill the
         remainder."""
+        tr = self.tracer
+        note: Dict[str, int] = {}
+        with tr.span("pack", args=note):
+            packed = self._pack_fused(note)
+        if packed is None:
+            return
+        dec, spans, dev, h2d, args = packed
+        # timing the step for the autotuner costs a device sync, so only
+        # pay it when an SLO is configured (the probe already syncs, and
+        # its synchronised modules are not the step the SLO is about)
+        time_it = self.ecfg.tpot_slo_s > 0.0 and not self._trace_modules
+        rc0 = self._c_recompiles.value
+        t0 = time.perf_counter() if time_it else 0.0
+        logits = self._paged_call("fused_step", args, self._fused_fn,
+                                  T.sharded_fused_step_traced, dev,
+                                  dec + [r for r, _, _ in spans])
+        with tr.span("commit"):
+            if time_it:
+                if not tr.enabled and logits.is_cuda:
+                    torch.cuda.synchronize(logits.device)
+                if self._c_recompiles.value == rc0:
+                    self._autotune_chunk(time.perf_counter() - t0)
+            self._commit_fused(dec, spans, logits, h2d,
+                               args["prefill_tokens"])
+
+    def _pack_fused(self, note: Dict[str, int]):
+        """The fused call's host arrays (the ``pack`` span, whose args
+        ``note`` takes): (its decode rows, its prefill rows as (request,
+        its tokens, chunk length), what the call takes, the upload's bytes,
+        the call span's args), or None when the step has no row."""
         cfg = self.cfg
         Hkv, page = cfg.n_kv_heads, self.kv.page
         # reserve decode capacity FIRST: §5.3 handling inside may preempt
@@ -884,7 +980,7 @@ class InferenceEngine:
             spans.append((r, full, n))
             left -= n
         if not dec and not spans:
-            return
+            return None
         rows = ([(r.rid, r.ctx_len - 1, 1) for r in dec]
                 + [(r.rid, r.prefill_pos, n) for r, _, n in spans])
         B = len(rows)
@@ -923,36 +1019,16 @@ class InferenceEngine:
         h2d = sum(a.nbytes for a in host)
         dev = self._upload(host, h2d)
         self._c_gather_d2d.inc(plan.d2d_bytes())
-        tr = self.tracer
-        n_pre = sum(n for _, _, n in spans)
-        # timing the step for the autotuner costs a device sync, so only
-        # pay it when an SLO is configured (the probe already syncs, and
-        # its synchronised modules are not the step the SLO is about)
-        time_it = self.ecfg.tpot_slo_s > 0.0 and not self._trace_modules
-        rc0 = self._c_recompiles.value
-        with tr.span("fused_step", args={"batch": Bp, "chunk": Cp,
-                                         "pages": Pp,
-                                         "decode_rows": len(dec),
-                                         "prefill_tokens": n_pre}):
-            t0 = time.perf_counter() if (tr.enabled or time_it) else 0.0
-            logits = self._paged_call(self._fused_fn,
-                                      T.sharded_fused_step_traced, dev,
-                                      dec + [r for r, _, _ in spans])
-            tr.sync(logits)
-            if tr.enabled or time_it:
-                if not tr.enabled and logits.is_cuda:
-                    torch.cuda.synchronize(logits.device)
-                dt = time.perf_counter() - t0
-                if tr.enabled:
-                    # attribute the ONE measured call to its phases by
-                    # token share — both phases ran inside one call
-                    tr.add_phase_spans(
-                        "fused/", t0, dt,
-                        {"decode": float(len(dec)),
-                         "prefill": float(n_pre)},
-                        depth=len(tr._stack))
-                if time_it and self._c_recompiles.value == rc0:
-                    self._autotune_chunk(dt)
+        note.update(rows=B, gather_lanes=plan.gather_count)
+        return dec, spans, dev, h2d, {
+            "batch": Bp, "chunk": Cp, "pages": Pp, "decode_rows": len(dec),
+            "prefill_tokens": sum(n for _, _, n in spans)}
+
+    def _commit_fused(self, dec: List[Request], spans, logits, h2d: int,
+                      n_pre: int) -> None:
+        """The fused call's bookkeeping (the ``commit`` span): the
+        counters, the sampled tokens, each row's context or prefill
+        progress, finished requests."""
         self._c_model_calls.inc()
         self._c_fused.inc()
         self._c_h2d.inc(h2d)
@@ -1093,7 +1169,6 @@ class InferenceEngine:
     # ------------------------------------------------------------------- step
     def step(self) -> Dict[str, float]:
         tr = self.tracer
-        t_wall = time.perf_counter() if tr.enabled else 0.0
         with tr.span("step"):
             with tr.span("admit"):
                 admitted = self._try_admit()
@@ -1117,32 +1192,35 @@ class InferenceEngine:
                 self._decode_batch()
             # Θ-triggered rebalance (at most one request per step, §5.3);
             # once the module probe has attributed measured attention time,
-            # the dispatcher recalibrates from the snapshot first
-            snap = (self.snapshot(ATTN_SNAPSHOT_PREFIX)
-                    if self._measured_attn else None)
-            d = maybe_rebalance(self.workers, list(self.attn_reqs.values()),
-                                theta=self.ecfg.theta, snapshot=snap)
+            # the dispatcher recalibrates from the snapshot first.  Two
+            # balance spans, around the migration's own span
+            with tr.span("balance"):
+                snap = (self.snapshot(ATTN_SNAPSHOT_PREFIX)
+                        if self._measured_attn else None)
+                d = maybe_rebalance(self.workers,
+                                    list(self.attn_reqs.values()),
+                                    theta=self.ecfg.theta, snapshot=snap)
             if d is not None:
                 with tr.span("rebalance", args={"rid": d.request.rid}):
                     self._apply_migration(d.request.rid, d.new_placement)
                 self._c_redisp.inc()
-            attn_t, dense_t = self._model_decode_parts()
-            step_time = attn_t + dense_t
-            if tr.enabled:
-                # modeled module spans on the simulated-clock track
-                tr.add_span("attention_model", self.clock, attn_t,
-                            track="sim")
-                tr.add_span("dense_model", self.clock + attn_t, dense_t,
-                            track="sim")
-            # migrations ride in the dense-compute overlap window (§6);
-            # the link model follows the measured h2d bandwidth gauge
-            if self._g_h2d_gbps.value > 0.0:
-                self.hauler.calibrate_from_snapshot(self.snapshot("xfer/"))
-            self.hauler.advance(step_time * self.ecfg.migration_overlap)
-            self.clock += step_time
-            self._c_steps.inc()
-        if tr.enabled:
-            self._h_step.observe(time.perf_counter() - t_wall)
+            with tr.span("balance"):
+                attn_t, dense_t = self._model_decode_parts()
+                step_time = attn_t + dense_t
+                if tr.enabled:
+                    # modeled module spans on the simulated-clock track
+                    tr.add_span("attention_model", self.clock, attn_t,
+                                track="sim")
+                    tr.add_span("dense_model", self.clock + attn_t, dense_t,
+                                track="sim")
+                # migrations ride in the dense-compute overlap window (§6);
+                # the link model follows the measured h2d bandwidth gauge
+                if self._g_h2d_gbps.value > 0.0:
+                    self.hauler.calibrate_from_snapshot(
+                        self.snapshot("xfer/"))
+                self.hauler.advance(step_time * self.ecfg.migration_overlap)
+                self.clock += step_time
+                self._c_steps.inc()
         return {"clock": self.clock, "running": len(self.running),
                 "prefilling": len(self.prefilling),
                 "queued": len(self.queue)}

@@ -41,6 +41,14 @@ Every graph of one :class:`CudaGraphs` (one engine's, one training run's)
 allocates from one memory pool: replays run one at a time on the current
 stream.
 
+Telemetry: a wrapper records its calls on its owner's tracer
+(``CudaGraphs.tracer``, an untraced one unless the owner gives its own), a
+replayed call as a ``graph/replay`` span (the shape key, the pointer
+check, the staging and the replay's host call), a shape's first call as a
+``graph/capture`` span (its warm-up and capture seconds as args).  The
+engine's paged calls also record :class:`CallClock`'s events on the
+device, which a capture takes into the graph.
+
 On CPU tensors, and inside :func:`disable_capture` (the counterpart of
 ``jax.disable_jit()``), the wrapper calls the function directly.  There is
 no fallback: on the card a capture that fails raises.
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -60,6 +69,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.telemetry.metrics import (Counter, ShapeCountingFn,
                                            _shape_key)
+from repro_torch.telemetry.tracer import Tracer
 
 # host-side counts that the code under a capture bumps where it launches
 # device work (the kernel wrappers' launches); see the module docstring
@@ -94,14 +104,38 @@ def _ptrs(tree) -> Tuple[int, ...]:
     return tuple(t.data_ptr() for t in _leaves(tree))
 
 
+class CallClock:
+    """Four timing events of one paged call on the device
+    (``transformer._on_anchor`` records them): at its start, after the
+    exchange's gather into the anchor, before its write-back, and at its
+    end.  Recorded while a stream is captured, each is an event-record
+    node of the graph (``external=True``), so every replay records it
+    anew.  Read after the device has finished the call."""
+
+    def __init__(self):
+        self.events = tuple(torch.cuda.Event(enable_timing=True,
+                                             external=True)
+                            for _ in range(4))
+
+    def read(self) -> Dict[str, float]:
+        """The last call's ``device_ms`` (start to end) and
+        ``exchange_ms`` (the gather and the write-back)."""
+        e = self.events
+        return {"device_ms": e[0].elapsed_time(e[3]),
+                "exchange_ms": e[0].elapsed_time(e[1])
+                + e[2].elapsed_time(e[3])}
+
+
 class CudaGraphs:
     """What the captured wrappers of one owner share on ``device``: one
     memory pool for every graph, the side stream each shape is warmed up
-    and captured on, and the pinned buffer host arrays are staged in.
-    Nothing is allocated before the first capture."""
+    and captured on, the pinned buffer host arrays are staged in, and the
+    tracer their calls' spans go to.  Nothing is allocated before the
+    first capture."""
 
-    def __init__(self, device):
+    def __init__(self, device, tracer: Optional[Tracer] = None):
         self.device = torch.device(device)
+        self.tracer = tracer if tracer is not None else Tracer()
         self._pool = self._stream = None
         self._host = self._host_np = self._copied = None
 
@@ -132,10 +166,20 @@ class CudaGraphs:
 
     def capture(self, fn, args):
         """(graph, outputs) of ``fn(*args)`` captured on the side stream
-        into the shared pool; nothing runs."""
+        into the shared pool; nothing runs.  The cyclic garbage collector
+        is held off meanwhile: a collection inside the capture could free
+        a dead owner's graph, which CUDA forbids while a stream captures
+        (it ends the capture)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._side()):
-            out = fn(*args)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._side()):
+                out = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out
 
     def host_buffer(self, nbytes: int) -> np.ndarray:
@@ -198,16 +242,25 @@ class CapturedFn(ShapeCountingFn):
         return bool(_DISABLED[0]) or not self.graphs.captures()
 
     def __call__(self, *args):
-        key = self._count((args, {}))
         fixed, host = args[:self.fixed], args[self.fixed:]
         if self._eager():
+            self._count((args, {}))
             dev = self.graphs.device
             return self.fn(*fixed, *(torch.from_numpy(a).to(dev)
                                      for a in host))
-        entry = self.entries.get(key)
-        if entry is None:
-            return self._capture(key, fixed, host)
-        return self._replay(entry, fixed, host)
+        tr = self.graphs.tracer
+        # the span opens before the shape key, which decides its name
+        with tr.span("graph/replay") as sp:
+            key = self._count((args, {}))
+            entry = self.entries.get(key)
+            if entry is not None:
+                return self._replay(entry, fixed, host)
+            out = self._capture(key, fixed, host)
+            if tr.enabled:
+                warm, cap = self.capture_s[-1]
+                sp.name = "graph/capture"
+                sp.args = {"warmup_s": warm, "capture_s": cap}
+            return out
 
     def replays_call(self, *args) -> bool:
         """Whether a call with ``args`` would replay a captured graph."""

@@ -2,7 +2,11 @@
 
 The engine's control loop is host-driven Python around one model call
 per step, so host-side spans capture exactly the boundaries that matter for
-the online dispatcher: admit / fused_step / rebalance.
+the online dispatcher: each ``step`` holds leaf spans that cover its host
+time (``admit``, ``pack``, the call's ``graph/replay`` or
+``graph/capture`` and ``wait``, ``commit``, ``balance``, ``rebalance``;
+see ``serving.engine``).  Every span is a real stretch of time on its
+clock: none is apportioned after the fact.
 
 Design constraints:
 
@@ -126,29 +130,6 @@ class Tracer:
         if not self.enabled:
             return
         self._record(Span(name, ts, dur, depth, track, args))
-
-    def add_phase_spans(self, prefix: str, ts: float, dur: float,
-                        weights: Dict[str, float], track: str = "main",
-                        depth: int = 0,
-                        args: Optional[Dict[str, Any]] = None) -> None:
-        """Attribute ONE measured span to several phases: split ``[ts,
-        ts + dur)`` into consecutive ``<prefix><phase>`` child spans whose
-        durations are proportional to ``weights`` (zero-weight phases are
-        skipped).  Used by the engine's fused prefill+decode step, where
-        both phases execute inside a single model call and only their
-        token shares are known."""
-        if not self.enabled:
-            return
-        total = sum(w for w in weights.values() if w > 0.0)
-        if total <= 0.0:
-            return
-        t = ts
-        for phase, w in weights.items():
-            if w <= 0.0:
-                continue
-            d = dur * w / total
-            self._record(Span(f"{prefix}{phase}", t, d, depth, track, args))
-            t += d
 
     def _record(self, sp: Span) -> None:
         self.events.append(sp)

@@ -1244,17 +1244,20 @@ def test_reduced_deepseek_trains_on_the_card_like_the_cpu(cuda):
 
 
 # -------------------------------------------- captured paged calls (graphs)
-def _small_engine(cfg, params, dev, mode):
-    """The reduced engine on ``dev`` serving 6 requests under ``mode``:
-    (tokens by request id, the engine)."""
+def _small_engine(cfg, params, dev, mode, telemetry=False,
+                  hosts=(("A100", 1), ("3090", 1))):
+    """The reduced engine on ``dev`` serving 6 requests under ``mode``,
+    an A100 primary and (by default) a 3090 pool shard: (tokens by request
+    id, the engine)."""
     import numpy as np
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.serving import EngineConfig, InferenceEngine, Request
     eng = InferenceEngine(
-        cfg, _to(params, dev), ClusterSpec.build([("A100", 1), ("3090", 1)]),
-        primary_ids=[0], pool_ids=[1],
+        cfg, _to(params, dev), ClusterSpec.build(list(hosts)),
+        primary_ids=[0], pool_ids=list(range(1, len(hosts))),
         engine_cfg=EngineConfig(max_batch=8, max_seq=128, page_size=16,
-                                prefill_chunk=16, step_mode=mode),
+                                prefill_chunk=16, step_mode=mode,
+                                telemetry=telemetry),
         device=dev)
     rng = np.random.default_rng(0)
     for i in range(6):
@@ -1403,6 +1406,136 @@ def test_replayed_bf16_fused_steps_repeat_the_eager_steps_bit_for_bit(cuda):
         ops.paged_attention(*dargs)
     assert {t: (len(c[1].entries), c[1].replays) for t, c in calls.items()} \
         == {"wgmma": (1, 2), "tma": (1, 1), "warp": (1, 1)}
+
+
+# ------------------------------------- the call clock and the host spans
+CALLS = {"fused": ("fused_step",), "split": ("prefill_chunk",
+                                             "paged_decode")}
+
+
+def _traced_calls(spans, mode):
+    """(call span, its graph span, its pack's args) of each paged call:
+    spans are recorded as they close, so a call's pack and graph span
+    close before it."""
+    out, note, graph = [], None, None
+    for sp in spans:
+        if sp.name == "pack" and sp.args:
+            note = sp.args
+        elif sp.name.startswith("graph/"):
+            graph = sp
+        elif sp.name in CALLS[mode]:
+            out.append((sp, graph, note))
+            note = graph = None
+    return out
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_replayed_calls_carry_their_device_and_exchange_ms(cuda, mode):
+    """The traced reduced engine on the card emits the untraced engine's
+    tokens; every call from a graph carries the call clock's
+    ``device_ms`` and ``exchange_ms``, 0 <= exchange < device, and a call
+    that staged pages from the pool shard spent some of it there."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    params = init_params(cfg, 0, device="cpu")
+    got, eng = _small_engine(cfg, params, cuda, mode, telemetry=True)
+    assert got == _small_engine(cfg, params, cuda, mode)[0]
+    calls = _traced_calls(eng.tracer.spans(track="main"), mode)
+    assert len(calls) == eng.metrics["model_calls"]
+    replayed = [(sp.args, note) for sp, graph, note in calls
+                if graph.name == "graph/replay"]
+    assert replayed
+    for args, note in replayed:
+        assert 0 <= args["exchange_ms"] < args["device_ms"], args
+        if note["gather_lanes"]:
+            assert args["exchange_ms"] > 0, (args, note)
+    assert any(note["gather_lanes"] for _, note in replayed)
+
+
+def test_a_call_without_exchange_lanes_reads_no_exchange_time(cuda):
+    """One device, no pool shard: no call has exchange lanes (Gp == 0),
+    and each reads at most 0.05 ms between its exchange marks."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    params = init_params(cfg, 0, device="cpu")
+    _, eng = _small_engine(cfg, params, cuda, "fused", telemetry=True,
+                           hosts=(("A100", 1),))
+    calls = _traced_calls(eng.tracer.spans(track="main"), "fused")
+    assert calls and all(note["gather_lanes"] == 0 for _, _, note in calls)
+    replayed = [sp.args for sp, graph, _ in calls
+                if graph.name == "graph/replay"]
+    assert replayed
+    for args in replayed:
+        assert args["device_ms"] > 0 and args["exchange_ms"] <= 0.05, args
+
+
+# how far the device trace, on the host's clock through the marker, may
+# read from the host's spans: on an H100 the last operation before a sync
+# read up to 34 µs after the host's return from it; a replay's launch
+# takes ms
+SKEW = 2e-4
+
+
+def test_replays_run_on_the_device_inside_their_spans(cuda):
+    """Under ``torch.profiler``, its trace put on the host's clock by the
+    benchmark's marker (``bench/trace.py``): each replayed call's device
+    work (its staging copy, its graph's kernels: what starts after the
+    step's ``pack`` closed) starts after the call's ``graph/replay`` span
+    opened and ends before its ``wait`` span closed, to ``SKEW``, so the
+    tracer's clock and the device trace's agree.  A request served once to
+    capture its shapes, then again under the profiler."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.serving import EngineConfig, InferenceEngine, Request
+    from repro_torch.weights import init_params
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench.trace import DeviceTrace
+    cfg = dataclasses.replace(smoke_config("qwen3-14b"), head_dim=64)
+    eng = InferenceEngine(
+        cfg, _to(init_params(cfg, 0, device="cpu"), cuda),
+        ClusterSpec.build([("A100", 1), ("3090", 1)]), primary_ids=[0],
+        pool_ids=[1],
+        engine_cfg=EngineConfig(max_batch=8, max_seq=128, page_size=16,
+                                prefill_chunk=16, telemetry=True),
+        device=cuda)
+    prompt = [(5 * k + 1) % cfg.vocab_size for k in range(40)]
+    for rid in (0, 1):
+        if rid == 1:
+            trace = DeviceTrace()
+            trace.start()
+        eng.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=12))
+        assert eng.run_until_drained(100)
+    trace.stop()
+    acts, _ = trace.intervals()
+    spans = [sp for sp in eng.tracer.spans(track="main")
+             if sp.ts >= trace.t_start]
+    assert eng.tracer.count("rebalance") == 0
+    lo, checked, replay = trace.t_start, 0, None
+    for sp in spans:                     # in the order they closed
+        if sp.name == "pack":
+            lo = sp.ts + sp.dur
+        elif sp.name == "graph/replay":
+            replay = sp
+        elif sp.name == "graph/capture":
+            replay = None
+        elif sp.name == "wait" and replay is not None:
+            end = sp.ts + sp.dur
+            mine = [(s, e) for s, e, _ in acts if lo < s <= end + SKEW]
+            assert mine
+            assert min(s for s, _ in mine) >= replay.ts - SKEW
+            assert max(e for _, e in mine) <= end + SKEW
+            checked += 1
+            replay = None
+    assert checked >= 10
 
 
 # ------------------------- the train step and profile_attention captured

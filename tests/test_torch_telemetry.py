@@ -186,10 +186,30 @@ def test_probe_emits_the_untraced_and_reference_tokens(served):
 
 
 # --------------------------------------------------- (b) span structure
+def reference_rows(served):
+    """(the port's span rows less its own leaf spans, the reference's
+    less its ``fused/<phase>`` spans, the port's extra span names): the
+    port records the reference's spans and beside them leaf spans that
+    never enclose one of the reference's (``tengine.HOST_SPANS``; under
+    the probe no call is captured, so no ``graph/*``), and drops the
+    reference's token-share split of the fused call."""
+    t_rows = span_rows(served["t"].tracer)
+    j_rows = span_rows(served["j"].tracer)
+    extra = {r[0] for r in t_rows} - {r[0] for r in j_rows}
+    return ([r for r in t_rows if r[0] not in extra],
+            [r for r in j_rows if not r[0].startswith("fused/")], extra)
+
+
 def test_probe_span_structure_matches_the_reference(served):
     j, t = served["j"], served["t"]
-    rows = span_rows(t.tracer)
-    assert rows == span_rows(j.tracer)
+    rows, j_rows, extra = reference_rows(served)
+    assert rows == j_rows
+    assert extra == set(tengine.HOST_SPANS) - {"graph/replay",
+                                                "graph/capture"}
+    # the reference's fused/<phase> spans are gone from the port
+    dropped = {r[0] for r in span_rows(j.tracer)} - {r[0] for r in rows}
+    assert dropped == ({"fused/decode", "fused/prefill"}
+                       if served["mode"] == "fused" else set())
     cfg = t.cfg
     calls = t.metrics["model_calls"]
     for name, per_call in (("embed", 1), ("lm_head", 1),
@@ -399,10 +419,15 @@ def test_validator_cli_exit_codes_match_the_reference(case, tmp_path,
 
 def test_engine_trace_validates(served, tmp_path):
     """The port engine's exported Chrome trace passes both validators,
-    with the reference's event count for the same spans."""
+    with the reference's event count for the same spans: the reference's
+    less its ``fused/<phase>`` spans, plus the port's own leaf spans."""
     path = tmp_path / "trace.json"
-    n = served["t"].tracer.write_chrome(str(path))
-    assert n == len(served["j"].tracer.export_chrome()["traceEvents"])
+    t, j = served["t"].tracer, served["j"].tracer
+    n = t.write_chrome(str(path))
+    _, _, extra = reference_rows(served)
+    assert n == (len(j.export_chrome()["traceEvents"])
+                 - j.count("fused/decode") - j.count("fused/prefill")
+                 + sum(t.count(name) for name in extra))
     spans = texport.validate_file(str(path))
     assert spans == jexport.validate_file(str(path)) == len(
         served["t"].tracer)
