@@ -20,6 +20,20 @@ MHA are handled uniformly (the paper's r M_i/2 capacity form is equivalent).
 The LP relaxation is solved with scipy's HiGHS and rounded to head-group
 integrality by largest remainder under capacity feasibility.  A greedy
 water-filling solver is provided both as a fallback and as a speed baseline.
+
+Two shapes the engine asks for on every step skip HiGHS where its answer
+is known without it, so every decision stays the one the LP makes:
+
+* the re-dispatch check (``maybe_rebalance``) compares the current time
+  with a lower bound on f* (:func:`_ideal_lower_bound`, the
+  capacity-free LP's dual) and solves f*'s LP only when the bound does
+  not settle "no";
+* one request's placement (``dispatch_lp`` of one request) is the water
+  level of its heads over the workers' loads (:func:`_water_fill`) where
+  that is the LP's unique optimum, no capacity row binds and the rounding
+  cannot tip; else HiGHS solves it.
+
+``SOLVES`` counts HiGHS's solves and the ones each shortcut made.
 """
 
 from __future__ import annotations
@@ -37,6 +51,14 @@ try:  # scipy is available offline in this container
     HAVE_SCIPY = True
 except Exception:  # pragma: no cover
     HAVE_SCIPY = False
+
+# HiGHS's solves (``lp``), re-dispatch checks settled by the bound on f*
+# (``bound``) and single-request placements by water level (``water``)
+SOLVES: Dict[str, int] = {"lp": 0, "bound": 0, "water": 0}
+# relative distance from a decision's edge below which the shortcuts leave
+# the decision to HiGHS (its solutions of the cases they take agree with
+# the closed forms to about 1e-13)
+_EDGE = 1e-6
 
 
 @dataclasses.dataclass
@@ -147,15 +169,66 @@ def dispatch_lp(workers: Sequence[WorkerState], requests: Sequence[AttnRequest]
     if need > sum(w.free_bytes() for w in ws) + 1e-6:
         return None
 
-    x = _solve_relaxation(ws, requests) if HAVE_SCIPY else None
+    x = None
+    if HAVE_SCIPY:
+        if J == 1:
+            x = _water_fill(ws, requests[0])
+        if x is None:
+            x = _solve_relaxation(ws, requests)
     if x is None:
         x = _greedy_relaxation(ws, requests)
     return _round_to_groups(ws, requests, x)
 
 
+def _water_fill(ws: List[WorkerState], r: AttnRequest
+                ) -> Optional[np.ndarray]:
+    """The LP's x, as (N, 1), for the one request ``r`` where it is known
+    without HiGHS; else None.
+
+    Worker i's time rises from its load f_i by alpha_i a head, so the
+    capacity-free optimum fills the workers to the level T at which
+    sum_i max(0, (T - f_i) / alpha_i) = H.  Its x is the LP's unique
+    optimum when T lies above every load (each worker takes heads), or
+    when one worker lies below the busiest and T below that (all H heads
+    to it; the others' times cannot rise) -- and when no worker's bytes
+    reach its free bytes.  Near an edge of these, or where the rounding
+    to head groups would tip on a last digit (an x / r near an integer,
+    two remainders near each other), HiGHS decides."""
+    g, dh, db = r.group_ratio, r.head_dim, r.dtype_bytes
+    s = r.ctx_len * r.kv_bytes_per_token_per_head()
+    slope = np.array([w.eff_a(g, dh, db) + w.eff_b() * s for w in ws])
+    load = np.array([w.f_time(g, dh, db) for w in ws])
+    if not (slope > 0.0).all():
+        return None
+    order = np.argsort(load, kind="stable")
+    f, inv = load[order], 1.0 / slope[order]
+    levels = (r.n_heads + np.cumsum(f * inv)) / np.cumsum(inv)
+    k = int(np.argmax(np.append(levels[:-1] <= f[1:], True)))
+    level, top = levels[k], f[-1]
+    x = np.zeros(len(ws))
+    if level - top > _EDGE * abs(top) and len(ws) > 1:
+        x = (level - load) / slope
+        frac = x / g
+        rem = np.sort(frac - np.floor(frac))
+        if (np.abs(frac - np.rint(frac)).min() < _EDGE
+                or np.diff(rem).min() < _EDGE):
+            return None
+    elif (len(ws) == 1 or (top - level > _EDGE * abs(top)
+                           and int((load < top).sum()) == 1)):
+        x[order[0]] = r.n_heads
+    else:
+        return None
+    free = np.array([w.free_bytes() for w in ws])
+    if (x * s > free * (1.0 - _EDGE)).any():
+        return None
+    SOLVES["water"] += 1
+    return x[:, None]
+
+
 def _solve_relaxation(ws: List[WorkerState], requests: Sequence[AttnRequest]
                       ) -> Optional[np.ndarray]:
     """LP over variables [x_00..x_(N-1)(J-1), T]; returns x as (N, J)."""
+    SOLVES["lp"] += 1
     N, J = len(ws), len(requests)
     nvar = N * J + 1
     c = np.zeros(nvar)
@@ -358,6 +431,42 @@ def ideal_attention_time(workers: Sequence[WorkerState],
     return worst
 
 
+def _ideal_lower_bound(ws: List[WorkerState],
+                       requests: Sequence[AttnRequest]) -> float:
+    """A lower bound on ``ideal_attention_time(ws, requests)`` for live
+    ``ws``, without an LP.
+
+    A head of request j costs w_ij = a_i + b_i s_j on blank worker i (s_j
+    its K/V bytes a head), so for any lambda on the simplex
+    L(lambda) = sum_i lambda_i c_i + sum_j H_j min_i lambda_i w_ij lies
+    below the capacity-free LP's optimum (weak duality), which lies below
+    f* (capacity only raises it; f* is max_i f_i of any x that places
+    every head).  For two workers L is concave and piecewise linear in
+    lambda_0, so its largest value, at 0, 1 or a kink w_1j / (w_0j +
+    w_1j), is the optimum itself; for more, lambda_i goes as 1 / mean_j
+    w_ij."""
+    r0 = requests[0]
+    a = np.array([w.eff_a(r0.group_ratio, r0.head_dim, r0.dtype_bytes)
+                  for w in ws])
+    b = np.array([w.eff_b() for w in ws])
+    c = np.array([w.const() for w in ws])
+    s = np.array([r.kv_bytes_per_head() for r in requests])
+    heads = np.array([float(r.n_heads) for r in requests])
+    cost = a[:, None] + b[:, None] * s[None, :]
+    if len(ws) == 2:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = cost[1] / (cost[0] + cost[1])
+        t = np.concatenate(([0.0, 1.0], t[(t > 0.0) & (t < 1.0)]))
+        lam = np.stack([t, 1.0 - t], axis=1)
+    else:
+        inv = 1.0 / cost.mean(axis=1)
+        if not (np.isfinite(inv).all() and (inv > 0.0).all()):
+            inv = np.ones(len(ws))
+        lam = (inv / inv.sum())[None, :]
+    bound = lam @ c + (lam[:, :, None] * cost[None]).min(axis=1) @ heads
+    return float(bound.max())
+
+
 ATTN_SNAPSHOT_PREFIX = "attn/device/"
 
 
@@ -397,7 +506,8 @@ def maybe_rebalance(workers: Sequence[WorkerState],
 
     When a telemetry ``snapshot`` is given, measured per-device attention
     latency recalibrates every worker first, so both the trigger and the
-    victim's new placement follow measured signals."""
+    victim's new placement follow measured signals.  A current time within
+    (1 + theta) of a lower bound on f* needs no LP to say no."""
     reqs = [r for r in requests if r.placement]
     if not reqs:
         return None
@@ -407,6 +517,11 @@ def maybe_rebalance(workers: Sequence[WorkerState],
                                 r0.head_dim, r0.dtype_bytes)
     cur = current_attention_time(workers, r0.group_ratio, r0.head_dim,
                                  r0.dtype_bytes)
+    live = _live(workers)
+    if (live and 1.0 + theta > 0.0 and cur <= (1.0 + theta)
+            * _ideal_lower_bound(live, reqs) * (1.0 - _EDGE)):
+        SOLVES["bound"] += 1
+        return None
     ideal = ideal_attention_time(workers, reqs)
     if ideal <= 0 or cur <= (1.0 + theta) * ideal:
         return None

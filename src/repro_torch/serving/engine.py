@@ -50,11 +50,14 @@ tables and exchange lanes of one paged call), the call's ``graph/replay``
 or ``graph/capture`` (``serving.graphs``) and ``wait`` (the host blocked
 on the device), ``commit`` (sampling and the tokens' bookkeeping) and
 ``balance`` (the rebalance check, the cost model, the hauler and the
-simulated clock).  On the card each paged call then also records
-``graphs.CallClock``'s events, captured into its graph, and its span
-carries the call's ``device_ms`` and ``exchange_ms``.  ``trace_modules``
-(which needs ``telemetry``) runs the per-module probe: the paged calls
-go through their traced twins (``transformer.sharded_*_traced``), whose
+simulated clock).  The registry counts, beside the reference's counters,
+the dispatcher's LP solves in each step and the ones its shortcuts made
+without one (:data:`DISPATCH_COUNTERS`).  On the card each paged call
+then also records ``graphs.CallClock``'s events, captured into its graph,
+and its span carries the call's ``device_ms`` and ``exchange_ms``.
+``trace_modules`` (which needs ``telemetry``) runs the per-module probe:
+the paged calls go through their traced twins
+(``transformer.sharded_*_traced``), whose
 device-synchronised embed / attention / mlp / lm_head spans close the
 measured calibration loop — the attention time, apportioned over the loaded devices, feeds
 the ``attn/device/<id>`` gauges that ``maybe_rebalance`` recalibrates
@@ -78,8 +81,9 @@ import torch
 from repro_torch.core.cluster import ClusterSpec, Device
 from repro_torch.core.costmodel import (calibrate_efficiency,
                                         dense_flops_layer)
-from repro_torch.core.dispatcher import (ATTN_SNAPSHOT_PREFIX, AttnRequest,
-                                         WorkerState, apply_placement,
+from repro_torch.core.dispatcher import (ATTN_SNAPSHOT_PREFIX, SOLVES,
+                                         AttnRequest, WorkerState,
+                                         apply_placement,
                                          current_attention_time, dispatch_lp,
                                          grow_context,
                                          handle_memory_exhaustion,
@@ -100,6 +104,12 @@ from repro_torch.telemetry import (MetricsRegistry, MetricsView, Tracer,
 # the spans the engine records beyond the reference's (module docstring)
 HOST_SPANS = ("pack", "graph/replay", "graph/capture", "wait", "commit",
               "balance")
+# the counters the engine keeps beyond the reference's: the dispatcher's
+# LP solves in its steps, and the ones its shortcuts made without one
+# (``core.dispatcher.SOLVES``)
+DISPATCH_COUNTERS = {"dispatch/lp_solves": "lp",
+                     "dispatch/lp_avoided_check": "bound",
+                     "dispatch/lp_avoided_place": "water"}
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -281,6 +291,8 @@ class InferenceEngine:
         self._c_fused = reg.counter("fused_steps")
         self._c_slo_viol = reg.counter("tpot_slo_violations")
         self._c_undrained = reg.counter("run_undrained")
+        self._c_solves = {key: reg.counter(name)
+                          for name, key in DISPATCH_COUNTERS.items()}
         self._h_fused_warm = reg.histogram("fused_warm_step_s")
         reg.gauge("prefill/chunk_now", fn=lambda: float(self._chunk_now))
         self._h_ttft = reg.histogram("ttft_s")
@@ -1169,6 +1181,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------- step
     def step(self) -> Dict[str, float]:
         tr = self.tracer
+        solves = dict(SOLVES)
         with tr.span("step"):
             with tr.span("admit"):
                 admitted = self._try_admit()
@@ -1221,6 +1234,8 @@ class InferenceEngine:
                 self.hauler.advance(step_time * self.ecfg.migration_overlap)
                 self.clock += step_time
                 self._c_steps.inc()
+                for key, c in self._c_solves.items():
+                    c.inc(SOLVES[key] - solves[key])
         return {"clock": self.clock, "running": len(self.running),
                 "prefilling": len(self.prefilling),
                 "queued": len(self.queue)}

@@ -86,4 +86,6 @@ def serve_in_lockstep(jcfg, tcfg, params_np, ecfg, n, lo, hi, max_new,
     assert len(t.finished) == n
     assert all(len(r.output) == max_new for r in t.finished)
     t.kv.check_invariants()
+    # the port settled re-dispatch checks without the reference's LP
+    assert t.snapshot("dispatch/")["dispatch/lp_avoided_check"] > 0
     return t
